@@ -1,0 +1,637 @@
+"""Single-device tiled S-Plus executor: the general grouped branch.
+
+Port of ``similaripy_tpu/engine/executor.py`` (``_execute_impl`` from :1357
+on, with ``_run_group_panels``). Similarity tiles are dense products over
+densified sparse tiles, with the S-Plus epilogue fused and a per-row top-K
+carried across column tiles (reference: s_plus.h:39-64,71-240,265-453):
+
+  - target rows go in row panels (the reference's OpenMP row loop);
+  - matrix2's columns are dealt round-robin by popularity into column tiles
+    (``balance_columns``), and as many dense (u_pad x tc) tiles as fit the
+    device budget are densified once per group;
+  - every panel streams over the resident group through K1
+    (``tile_topk.fused_tile_topk``), whose in-kernel merge carries each
+    row's top-k_pad from tile to tile.
+
+Every single-device call of the port takes this branch; the JAX package's
+symmetric and compaction executors, its device-resident cache, its
+exclude-seen fold and its split-bf16x3 sweep are not ported yet. Each of
+those changes speed only, never a result.
+
+Candidate semantics: an output cell is a candidate iff its product xy != 0
+(the dense-tile proxy for the reference's structural non-zeros,
+s_plus.h:112-117). Non-candidates, thresholded and filtered cells are -inf.
+"""
+
+from __future__ import annotations
+
+import gc
+import math
+import sys
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from ..ops.csr import csc_quantized
+from ..utils.device import hbm_budget_bytes, resolve_device
+from . import tile_topk
+from .params import PVEC_LEN, SPlusParams, build_pvec
+from .preprocess import Preprocessed
+
+NEG_INF = float("-inf")
+
+# widest column tile the kernel path plans: the top-k launch sorts a row's
+# survivors in shared memory (8 bytes per column)
+KERNEL_MAX_TC = 8192
+
+# tile-width search model of an H100 SXM (relative costs only): the
+# published f32 FMA peak (the SIMT kernel runs bf16 at that rate too), an
+# assumed per-tile launch cost and an assumed device scatter rate
+_SEARCH_RATE = 67e12
+_SEARCH_TILE_OVERHEAD_S = 20e-6
+_SEARCH_SCATTER_NNZ_PER_S = 1e9
+
+# calls of the k_pad > MAX_KERNEL_K_PAD branch (plain PyTorch per tile)
+wide_k_calls = 0
+
+# the geometry the latest call planned (for diagnostics and measurements)
+last_plan: dict = {}
+
+
+# ---------------------------------------------------------------------------
+# Tiling plan
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    panel_rows: int  # TRP: target rows per panel
+    tile_cols: int  # TC: matrix2 columns per tile
+    u_pad: int  # padded inner (common) dimension
+    n_panels: int
+    n_tiles: int
+
+
+def plan_tiles(
+    n_targets: int,
+    n_common: int,
+    n_cols: int,
+    k: int,
+    itemsize: int,
+    block_size_hint: Optional[int],
+    budget_bytes: int,
+) -> TilePlan:
+    """Choose panel/tile sizes under the device budget (executor.py:132).
+
+    `block_size_hint` carries the reference block_size semantics
+    (reference: s_plus.pyx:217-225): None = single tile (blocking disabled),
+    0/auto = planner's choice, int > 0 = explicit tile width.
+    """
+    budget = budget_bytes
+    u_pad = max(_round_up(n_common, 128), 128)
+
+    if block_size_hint is None:
+        tc = _round_up(n_cols, 128)
+    elif block_size_hint and block_size_hint > 0:
+        tc = min(_round_up(int(block_size_hint), 8), _round_up(n_cols, 128))
+    else:
+        # auto: D tile (u_pad x TC) should use at most ~30% of budget
+        tc = int((budget * 0.30) // (u_pad * itemsize))
+        tc = max(min(_round_up(tc, 128), _round_up(n_cols, 128)), 128)
+        tc = min(tc, 8192)
+
+    # panel: M1 dense (TRP x u_pad) + scores (TRP x TC) within ~50% of budget
+    per_row = u_pad * itemsize + tc * 4 * 3  # dense row + score tile + topk slack
+    trp = int((budget * 0.50) // per_row)
+    trp = max(min(_round_up(trp, 8), _round_up(n_targets, 8)), 8)
+    trp = min(trp, 32768)
+
+    n_panels = math.ceil(n_targets / trp)
+    n_tiles = math.ceil(n_cols / tc)
+    return TilePlan(panel_rows=trp, tile_cols=tc, u_pad=u_pad, n_panels=n_panels, n_tiles=n_tiles)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def plan_fused_groups(
+    *,
+    C: int,
+    tc: int,
+    u_pad: int,
+    trp: int,
+    k_pad: int,
+    m1_nnz: int,
+    m2_nnz: int,
+    sel_nnz: int,
+    m1_bytes: int,
+    tile_item: int,
+    budget: int,
+    n_panels: int,
+    search: bool,
+    max_tc: int,
+) -> tuple[int, int, int, int]:
+    """Choose (tc, n_tiles_padded, g_tiles, n_groups) for the grouped sweep
+    (executor.py:175).
+
+    With `search`, the column-tile width minimizes a modeled sweep cost over
+    candidate widths: empty padded tiles cost full products and every extra
+    group re-scatters the whole matrix1 panel set, so how C divides into
+    tiles matters more than the width itself. Deterministic host logic."""
+
+    def group_plan(tc_cand: int):
+        n_t = math.ceil(C / tc_cand)
+        tile_b = u_pad * tc_cand * tile_item
+        # reserve: panel working set + device COO uploads (~12 B/nnz +
+        # padding) + one group's selector slice + whole-run carry planes +
+        # one tile's densify transient + 1 GB slack
+        res = (
+            m1_bytes
+            + trp * tc_cand * 16
+            + int((m1_nnz + m2_nnz) * 12 * 1.8)
+            + int(sel_nnz * 8 * 1.8)
+            + 2 * n_panels * k_pad * trp * 4
+            + u_pad * tc_cand * tile_item
+            + (1 << 30)
+        )
+        g = max(1, int((budget * 0.85 - res) // tile_b))
+        g = min(g, n_t)
+        # pad the tile count so every group has exactly g tiles; shrink g
+        # to the minimum for the chosen group count
+        ng = math.ceil(n_t / g)
+        g = math.ceil(n_t / ng)
+        return ng * g, g, ng
+
+    if search:
+        def cost(tc_cand: int):
+            n_tp, g, ng = group_plan(tc_cand)
+            prod = n_panels * n_tp * (2.0 * trp * u_pad * tc_cand / _SEARCH_RATE)
+            ovh = n_panels * n_tp * _SEARCH_TILE_OVERHEAD_S
+            scat = ng * (m1_nnz + m2_nnz) / _SEARCH_SCATTER_NNZ_PER_S
+            return prod + ovh + scat
+
+        c_pad = _round_up(C, 128)
+        lo = min(2048, c_pad)
+        cands = range(lo, min(max_tc, c_pad) + 1, 128)
+        if cands:
+            tc = min(reversed(cands), key=cost)  # ties -> wider tile
+    n_tiles, g_tiles, n_groups = group_plan(tc)
+    return tc, n_tiles, g_tiles, n_groups
+
+
+def _pad_bucket(n: int, minimum: int = 1024) -> int:
+    """Eighth-octave size buckets (<= 12.5% padding), as in the reference,
+    so staged arrays keep a few distinct shapes."""
+    n = max(n, minimum)
+    step = 1 << max(n.bit_length() - 4, 0)
+    return ((n + step - 1) // step) * step
+
+
+# ---------------------------------------------------------------------------
+# Device tiles
+# ---------------------------------------------------------------------------
+
+
+def compute_cast(compute_dtype: str):
+    """Tile storage dtype for a compute mode (K1 accumulates f32, or int32
+    for int8).
+
+    'int8' is the exact-quantization path: (scaled) small integers
+    accumulate exactly in int32 and `inv_scale` (pvec[9]) restores the
+    magnitude. 'int4' is stored as int8, as the reference does in effect
+    (its int4 branch at executor.py:289 can never run)."""
+    if compute_dtype == "bfloat16":
+        return torch.bfloat16
+    if compute_dtype in ("int8", "int4"):
+        return torch.int8
+    return torch.float32
+
+
+def densify(shape, rows, cols, vals, cdt):
+    """Scatter a padded COO into a dense tile of dtype `cdt`.
+
+    Entries whose row lies outside `shape` are the padding sentinels and
+    are dropped; duplicates sum, as SciPy sums them."""
+    n_rows, n_cols = shape[-2], shape[-1]
+    keep = rows < n_rows
+    flat = rows[keep].to(torch.int64) * n_cols + cols[keep].to(torch.int64)
+    out = torch.zeros(math.prod(shape), dtype=cdt, device=rows.device)
+    out.index_put_((flat,), vals[keep].to(cdt), accumulate=True)
+    return out.view(shape)
+
+
+def scatter_mask(shape, rows, cols):
+    """A uint8 membership mask (1 at each in-range (row, col))."""
+    keep = rows < shape[0]
+    flat = rows[keep].to(torch.int64) * shape[1] + cols[keep].to(torch.int64)
+    out = torch.zeros(shape[0] * shape[1], dtype=torch.uint8, device=rows.device)
+    out.index_put_((flat,), torch.ones_like(flat, dtype=torch.uint8))
+    return out.view(shape)
+
+
+def _densify_group(rows, cols, vals, *, u_pad: int, tc: int, cdt):
+    """(G, p2) padded tile COOs -> (G, u_pad, tc) dense tiles."""
+    g = rows.shape[0]
+    tile_ids = torch.arange(g, device=rows.device, dtype=torch.int64)[:, None]
+    # fold the tile id into the row so one scatter fills the whole stack;
+    # a padding sentinel (row == u_pad) stays out of range
+    stacked_rows = torch.where(rows < u_pad, rows + tile_ids * u_pad, g * u_pad)
+    return densify((g * u_pad, tc), stacked_rows.ravel(), cols.ravel(),
+                   vals.ravel(), cdt).view(g, u_pad, tc)
+
+
+# ---------------------------------------------------------------------------
+# Host orchestration
+# ---------------------------------------------------------------------------
+
+
+def _expand_ranges(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """Concatenate [s, s+c) ranges into one index vector, vectorized."""
+    total = int(counts.sum())
+    if total == 0:
+        return np.empty(0, dtype=np.int64)
+    ends = np.cumsum(counts)
+    out = np.repeat(starts - np.concatenate([[0], ends[:-1]]), counts)
+    return out + np.arange(total, dtype=np.int64)
+
+
+def _extract_cols_coo(csc, cols_old: np.ndarray):
+    """(row_idx, local_col_idx, data_positions) of csc[:, cols_old]."""
+    starts = csc.indptr[cols_old].astype(np.int64)
+    counts = (csc.indptr[cols_old + 1] - csc.indptr[cols_old]).astype(np.int64)
+    pos = _expand_ranges(starts, counts)
+    rows = csc.indices[pos]
+    local = np.repeat(np.arange(cols_old.shape[0], dtype=np.int32), counts)
+    return rows, local, pos
+
+
+def balance_columns(col_nnz: np.ndarray, n_tiles: int, tc: int):
+    """Round-robin columns over tiles by popularity rank (executor.py:1028;
+    reference: s_plus_utils.pyx:493-618), so every tile's padded COO sits
+    near the mean nnz.
+
+    Returns (tile_lists, col_map): tile_lists[t] are the original column
+    ids of tile t; col_map maps device flat id (t*tc + slot) back to the
+    original column (sentinel len(col_nnz) for unused slots)."""
+    C = col_nnz.shape[0]
+    rank = np.argsort(-col_nnz, kind="stable")
+    tile_lists = [rank[t::n_tiles] for t in range(n_tiles)]
+    col_map = np.full(n_tiles * tc, C, dtype=np.int64)
+    for t, cols in enumerate(tile_lists):
+        col_map[t * tc : t * tc + cols.shape[0]] = cols
+    return tile_lists, col_map
+
+
+def _stack_m2_tiles_balanced(m2_csc, tile_lists, tc: int, u_pad: int):
+    """Per-tile padded COO of the balanced column layout."""
+    n_tiles = len(tile_lists)
+    parts = [_extract_cols_coo(m2_csc, cols) for cols in tile_lists]
+    p2 = _pad_bucket(max((p[0].shape[0] for p in parts), default=1))
+    rows = np.full((n_tiles, p2), u_pad, dtype=np.int32)
+    cols = np.zeros((n_tiles, p2), dtype=np.int32)
+    vals = np.zeros((n_tiles, p2), dtype=np.float32)
+    for t, (r, local, pos) in enumerate(parts):
+        n = r.shape[0]
+        rows[t, :n] = r
+        cols[t, :n] = local
+        vals[t, :n] = m2_csc.data[pos]
+    return rows, cols, vals
+
+
+def _stack_selector_tiles_balanced(sel_csc, tile_lists, tc: int, trp: int, pf: int):
+    """Per-tile padded COO (mask positions) of a selector's panel rows under
+    the balanced column layout; `pf` is the shared pad bucket."""
+    n_tiles = len(tile_lists)
+    parts = [_extract_cols_coo(sel_csc, cols) for cols in tile_lists]
+    rows = np.full((n_tiles, pf), trp, dtype=np.int32)
+    cols = np.zeros((n_tiles, pf), dtype=np.int32)
+    for t, (r, local, _pos) in enumerate(parts):
+        n = r.shape[0]
+        rows[t, :n] = r
+        cols[t, :n] = local
+    return rows, cols
+
+
+def _selector_pf(sel_t, panel_sels, col_map, tc: int, C: int, n_tiles: int) -> int:
+    """Shared selector pad bucket: the max per-(panel, tile) nnz."""
+    col_tile = np.zeros(C, np.int32)
+    used = col_map < C
+    col_tile[col_map[used]] = (np.flatnonzero(used) // tc).astype(np.int32)
+    mx = 1
+    for sel in panel_sels:
+        idx = sel_t[sel].indices
+        if idx.shape[0]:
+            mx = max(mx, int(np.bincount(col_tile[idx], minlength=n_tiles).max()))
+    return _pad_bucket(mx, minimum=256)
+
+
+def _vec_by_map(v: Optional[np.ndarray], col_map: np.ndarray, n_cols: int,
+                fill: float = 1.0) -> np.ndarray:
+    """Reindex a per-column vector into the balanced device layout."""
+    out = np.full(col_map.shape[0], fill, dtype=np.float32)
+    if v is not None:
+        used = col_map < n_cols
+        out[used] = np.asarray(v, dtype=np.float32)[col_map[used]]
+    return out
+
+
+def _pad_vec(v: Optional[np.ndarray], n: int, fill: float = 1.0) -> np.ndarray:
+    out = np.full(n, fill, dtype=np.float32)
+    if v is not None:
+        out[: v.shape[0]] = v
+    return out
+
+
+def resolve_compute_dtype(requested: str, pre: Preprocessed) -> tuple[str, float]:
+    """Resolve 'auto' to the exact int8 path when the data allows it
+    (executor.py:1167). Returns (compute_dtype, inv_scale).
+
+    int8 is chosen when both matrices hold small integers after a
+    power-of-two scaling and the worst-case dot product fits int32: every
+    xy is then accumulated exactly."""
+    s1, s2 = pre.qscale1, pre.qscale2
+    if requested == "int8":
+        if s1 is None or s2 is None:
+            raise ValueError(
+                "compute_dtype='int8' requires data integerizable to |v|<=127 "
+                "after a power-of-two scaling; use 'auto' to fall back safely"
+            )
+        return "int8", 1.0 / (s1 * s2)
+    if requested == "int4":
+        if s1 is None or s2 is None:
+            raise ValueError(
+                "compute_dtype='int4' requires integerizable data with "
+                "|v| <= 7 after scaling (binary/small-count matrices)"
+            )
+        return "int8", 1.0 / (s1 * s2)  # stored and multiplied as int8
+    if requested != "auto":
+        return requested, 1.0
+    if s1 is None or s2 is None:
+        return "float32", 1.0
+    m1, m2 = pre.m1, pre.m2
+    maxv1 = float(np.abs(m1.data).max()) * s1 if m1.nnz else 0.0
+    maxv2 = float(np.abs(m2.data).max()) * s2 if m2.nnz else 0.0
+    max_row_nnz1 = int(np.diff(m1.indptr).max()) if m1.nnz else 0
+    if m2.nnz == 0:
+        max_col_nnz2 = 0
+    elif sp.issparse(m2) and m2.format == "csc":
+        max_col_nnz2 = int(np.diff(m2.indptr).max())
+    else:
+        max_col_nnz2 = int(np.bincount(m2.indices, minlength=m2.shape[1]).max())
+    overlap = min(max_row_nnz1, max_col_nnz2)
+    if maxv1 * maxv2 * max(overlap, 1) >= 2.0**30:
+        return "float32", 1.0
+    return "int8", 1.0 / (s1 * s2)
+
+
+def _wide_k_tile(*args, **kwargs):
+    """One tile of the k_pad > MAX_KERNEL_K_PAD branch: plain PyTorch, as
+    the reference hands k_pad > 1024 from its kernel to XLA
+    (executor.py:1416-1425). Counted apart from K1's two routes."""
+    global wide_k_calls
+    wide_k_calls += 1
+    return tile_topk._plain(*args, **kwargs)
+
+
+def _run_group_panels(panels, d_stack, group, pvec, carries, *, flags, k_pad,
+                      trp, u_pad, cdt, int8_mode, tile_fn):
+    """All panels x the group's resident tiles (executor.py:622): densify
+    each panel, then feed every tile through `tile_fn` with the panel's
+    carried top-k_pad, which the call returns merged."""
+    tc = d_stack.shape[2]
+    for p, (pr, pc, pv, x_t, x_c, x_d) in enumerate(panels):
+        m1_dense = densify((trp, u_pad), pr, pc, pv, cdt)
+        for j in range(d_stack.shape[0]):
+            fmask = tmask = None
+            if "fil_rows" in group:
+                fmask = scatter_mask((trp, tc), group["fil_rows"][p, j], group["fil_cols"][p, j])
+            if "tgt_rows" in group:
+                tmask = scatter_mask((trp, tc), group["tgt_rows"][p, j], group["tgt_cols"][p, j])
+            pvec_ext = torch.cat([pvec, group["col_offset"][j], pvec.new_zeros(PVEC_LEN - 11)])
+            carries[p] = tile_fn(
+                m1_dense, d_stack[j], x_t, x_c, x_d,
+                group["y_t"][j], group["y_c"][j], group["y_d"][j], pvec_ext,
+                allowed=group["allowed"][j] if "allowed" in group else None,
+                fmask=fmask, tmask=tmask, carry=carries[p],
+                flags=flags, k_pad=k_pad, int8_mode=int8_mode,
+            )
+
+
+def execute(
+    pre: Preprocessed,
+    params: SPlusParams,
+    *,
+    block_size_hint: Optional[int] = 0,
+    compute_dtype: str = "float32",
+    precision: str = "highest",
+    budget_bytes: Optional[int] = None,
+    progress=None,
+    device="cuda",
+    _tile_fn: str = "kernel",
+):
+    """Run the tiled similarity; returns host (T, k) vals f32 and idx int32.
+
+    A device out-of-memory error replans the call once from scratch with a
+    25% smaller budget (executor.py:1245-1306). Only
+    ``torch.cuda.OutOfMemoryError`` triggers it. `_tile_fn="plain"` runs
+    the plain PyTorch K1 even on a card (for comparisons only)."""
+    device = resolve_device(device)
+    if budget_bytes is None:
+        budget_bytes = hbm_budget_bytes(device)
+    kwargs = dict(
+        block_size_hint=block_size_hint, compute_dtype=compute_dtype,
+        precision=precision, progress=progress, device=device, tile_fn=_tile_fn,
+    )
+    try:
+        return _execute_impl(pre, params, budget_bytes=budget_bytes, **kwargs)
+    except torch.cuda.OutOfMemoryError:
+        retry_budget = int(budget_bytes * 0.75)
+        print(
+            f"# similaripy_tpu_torch: device OOM — replanning once with a "
+            f"smaller device budget ({retry_budget >> 20} MB)",
+            file=sys.stderr, flush=True,
+        )
+    # outside the except block, so the failed attempt's frames (and the
+    # device buffers they hold) are released before the retry
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    if progress is not None and hasattr(progress, "reset"):
+        progress.reset()
+    return _execute_impl(pre, params, budget_bytes=retry_budget, **kwargs)
+
+
+def _execute_impl(
+    pre: Preprocessed,
+    params: SPlusParams,
+    *,
+    block_size_hint: Optional[int],
+    compute_dtype: str,
+    precision: str,
+    budget_bytes: int,
+    progress,
+    device: torch.device,
+    tile_fn: str,
+):
+    """Plan and run one attempt (see execute). `precision` is a minimum
+    guarantee; every float mode here runs true f32 or bf16 products."""
+    if precision not in ("highest", "high", "default"):
+        raise ValueError(f"precision must be 'highest', 'high' or 'default', got {precision!r}")
+    if tile_fn not in ("kernel", "plain"):
+        raise ValueError(f"_tile_fn must be 'kernel' or 'plain', got {tile_fn!r}")
+    m1, m2, targets, k = pre.m1, pre.m2, pre.targets, pre.k
+    T = targets.shape[0]
+    U = m1.shape[1]
+    C = pre.n_output_cols
+
+    if T == 0 or k == 0:
+        return (
+            np.full((T, max(k, 1)), NEG_INF, np.float32),
+            np.zeros((T, max(k, 1)), np.int32),
+        )
+
+    compute_dtype, inv_scale = resolve_compute_dtype(compute_dtype, pre)
+    cdt = compute_cast(compute_dtype)
+    dense_item = torch.empty(0, dtype=cdt).element_size()
+    plan = plan_tiles(T, U, C, k, dense_item, block_size_hint, budget_bytes)
+    trp, tc, u_pad = plan.panel_rows, plan.tile_cols, plan.u_pad
+
+    # carry planes accumulate across ALL tiles, so their depth is k
+    # (clamped to the catalog), not one tile's width
+    k_pad = _round_up(min(k, C), 8)
+    wide = k_pad > tile_topk.MAX_KERNEL_K_PAD
+    if wide:
+        k_pad = k
+        step = _wide_k_tile
+    elif tile_fn == "plain":
+        step = tile_topk.fused_tile_topk_plain
+    else:
+        step = tile_topk.fused_tile_topk
+    # smaller panels leave more memory for resident tile groups (each extra
+    # group re-scatters matrix1), so cap the panel height
+    trp = min(trp, 2048)
+    tc = _round_up(min(tc, KERNEL_MAX_TC, _round_up(C, 128)), 128)
+
+    m1_bytes = trp * u_pad * dense_item
+    sel_nnz = (
+        (pre.filter_matrix.nnz if pre.filter_matrix is not None else 0)
+        + (pre.target_matrix.nnz if pre.target_matrix is not None else 0)
+    )
+    n_panels = math.ceil(T / trp)
+    tc, n_tiles, g_tiles, n_groups = plan_fused_groups(
+        C=C, tc=tc, u_pad=u_pad, trp=trp, k_pad=k_pad,
+        m1_nnz=m1.nnz, m2_nnz=m2.nnz, sel_nnz=sel_nnz,
+        m1_bytes=m1_bytes, tile_item=dense_item, budget=budget_bytes,
+        n_panels=n_panels,
+        search=compute_dtype in ("bfloat16", "float32") and block_size_hint == 0,
+        max_tc=KERNEL_MAX_TC,
+    )
+
+    last_plan.clear()
+    last_plan.update(
+        compute_dtype=compute_dtype, trp=trp, tc=tc, u_pad=u_pad, k_pad=k_pad,
+        n_panels=n_panels, n_tiles=n_tiles, g_tiles=g_tiles, n_groups=n_groups,
+    )
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    # ---- matrix2 tiles: balanced round-robin column layout ----
+    int8_mode = compute_dtype in ("int8", "int4")
+    m2_csc = csc_quantized(m2, pre.qscale2 if int8_mode else None)
+    tile_lists, col_map = balance_columns(np.diff(m2_csc.indptr), n_tiles, tc)
+    t_rows, t_cols, t_vals = (
+        dev(a) for a in _stack_m2_tiles_balanced(m2_csc, tile_lists, tc, u_pad)
+    )
+    tiles_common = {
+        name: dev(_vec_by_map(v, col_map, C).reshape(n_tiles, tc))
+        for name, v in (("y_t", pre.Yt), ("y_c", pre.Yc), ("y_d", pre.Yd))
+    }
+    tiles_common["col_offset"] = dev(
+        (np.arange(n_tiles, dtype=np.float32) * tc).reshape(n_tiles, 1)
+    )
+    if pre.col_allowed is not None:
+        allowed = np.zeros(col_map.shape[0], dtype=np.uint8)
+        used = col_map < C
+        allowed[used] = pre.col_allowed[col_map[used]]
+        tiles_common["allowed"] = dev(allowed.reshape(n_tiles, tc))
+
+    # ---- matrix1 panels: target rows dealt round-robin by nnz rank ----
+    m1_t = m1[targets]
+    if int8_mode:
+        m1_t.data = np.rint(m1_t.data * pre.qscale1).astype(np.float32)
+    row_nnz = np.diff(m1_t.indptr)
+    order = np.argsort(-row_nnz, kind="stable")
+    panel_sel = [order[p::n_panels] for p in range(n_panels)]
+    panels = []
+    for sel in panel_sel:
+        panel = m1_t[sel]
+        tgt = targets[sel]
+        pr = np.repeat(np.arange(sel.shape[0], dtype=np.int32), np.diff(panel.indptr))
+        vecs = [
+            _pad_vec(v[tgt] if v is not None else None, trp)
+            for v in (pre.Xt, pre.Xc, pre.Xd)
+        ]
+        panels.append(
+            (dev(pr), dev(panel.indices.astype(np.int32)), dev(panel.data), *map(dev, vecs))
+        )
+
+    # ---- per-panel selector tiles (host-staged, uploaded per group) ----
+    sel_stacked = {}
+    for name, mat in (("fil", pre.filter_matrix), ("tgt", pre.target_matrix)):
+        if mat is None:
+            continue
+        sel_t = mat[targets]
+        pf = _selector_pf(sel_t, panel_sel, col_map, tc, C, n_tiles)
+        stacks = [
+            _stack_selector_tiles_balanced(sel_t[sel].tocsc(), tile_lists, tc, trp, pf)
+            for sel in panel_sel
+        ]
+        sel_stacked[f"{name}_rows"] = np.stack([s[0] for s in stacks])
+        sel_stacked[f"{name}_cols"] = np.stack([s[1] for s in stacks])
+
+    pvec = dev(build_pvec(params, inv_scale))
+    carries = [
+        (
+            torch.full((k_pad, trp), NEG_INF, dtype=torch.float32, device=device),
+            torch.zeros((k_pad, trp), dtype=torch.int32, device=device),
+        )
+        for _ in range(n_panels)
+    ]
+    for g in range(n_groups):
+        t0, t1 = g * g_tiles, (g + 1) * g_tiles
+        d_stack = None  # release the previous group before the next lands
+        d_stack = _densify_group(
+            t_rows[t0:t1], t_cols[t0:t1], t_vals[t0:t1], u_pad=u_pad, tc=tc, cdt=cdt
+        )
+        group = {name: arr[t0:t1] for name, arr in tiles_common.items()}
+        for name, arr in sel_stacked.items():
+            group[name] = dev(arr[:, t0:t1])
+        _run_group_panels(
+            panels, d_stack, group, pvec, carries,
+            flags=params.static_flags(), k_pad=k_pad, trp=trp, u_pad=u_pad,
+            cdt=cdt, int8_mode=int8_mode, tile_fn=step,
+        )
+        if progress is not None:
+            done = T if g == n_groups - 1 else (T * (g + 1)) // n_groups
+            progress.update(done - (T * g) // n_groups)
+    del d_stack
+
+    k_out = min(k, k_pad)
+    all_vals = torch.stack([c[0] for c in carries]).transpose(1, 2)[:, :, :k_out].cpu().numpy()
+    all_idx = torch.stack([c[1] for c in carries]).transpose(1, 2)[:, :, :k_out].cpu().numpy()
+    out_vals = np.full((T, k), NEG_INF, np.float32)
+    out_idx = np.zeros((T, k), np.int32)
+    for p, sel in enumerate(panel_sel):
+        out_vals[sel, :k_out] = all_vals[p, : sel.shape[0]]
+        out_idx[sel, :k_out] = all_idx[p, : sel.shape[0]]
+
+    # device column ids are balanced-layout slots; map back to originals.
+    # -inf slots carry arbitrary ids (incl. unused-slot sentinels) and are
+    # dropped downstream in assembly, so a blanket map is safe.
+    out_idx = col_map[out_idx].astype(np.int32)
+    return out_vals, out_idx

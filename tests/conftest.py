@@ -36,3 +36,4 @@ import pytest  # noqa: E402
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "perf: marks tests as performance tests")
+    config.addinivalue_line("markers", "cuda: needs a CUDA card; skips without one")

@@ -1,0 +1,120 @@
+"""The port stands alone: it and chip_smoke.py import neither JAX nor the
+JAX package, build their kernels with plain nvcc, and refuse to run on a
+card that is not there."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import similaripy_tpu_torch as tsim
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "similaripy_tpu_torch"
+SMOKE = ROOT / "chip_smoke.py"
+SOURCES = sorted(PORT.rglob("*.py")) + [SMOKE]
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == name or module.startswith(name + ".")
+               for name in ("jax", "jaxlib", "similaripy_tpu"))
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_jax_import_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_imports_and_runs_with_jax_blocked():
+    """In a fresh interpreter where importing jax or similaripy_tpu fails,
+    the package imports, chip_smoke.py loads, and a small call runs."""
+    script = textwrap.dedent(f"""
+        import importlib.util, sys
+        sys.modules["jax"] = None
+        sys.modules["similaripy_tpu"] = None
+        import numpy as np, scipy.sparse as sp
+        import similaripy_tpu_torch as sim
+        spec = importlib.util.spec_from_file_location("chip_smoke", {str(SMOKE)!r})
+        smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(smoke)
+        m = sp.random_array((40, 30), density=0.1, format="csr", dtype=np.float32,
+                            random_state=np.random.default_rng(0))
+        out = sim.cosine(sim.bm25(m, device="cpu").T, k=5, verbose=False, device="cpu")
+        assert out.nnz > 0
+        leaked = [n for n in sys.modules if n == "jax" and sys.modules[n] is not None
+                  or n.startswith(("jax.", "jaxlib", "similaripy_tpu."))]
+        assert not leaked, leaked
+        print("isolated ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "isolated ok" in proc.stdout
+
+
+def test_kernel_builds_with_plain_nvcc():
+    """Build route: nvcc into a plain C library, loaded with ctypes; no
+    PyTorch extension headers, no torch.utils.cpp_extension."""
+    from similaripy_tpu_torch.engine import build
+
+    cu = (PORT / "csrc" / "tile_topk.cu").read_text()
+    assert "torch/extension.h" not in cu and 'extern "C"' in cu
+    for path in PORT.rglob("*.py"):
+        assert "cpp_extension" not in path.read_text(), path
+    assert "sm_90a" in " ".join(build.NVCC_FLAGS)
+    assert build.library_path().parent == PORT / "_build"
+
+
+ENTRY_POINTS = {
+    "s_plus": lambda m: tsim.s_plus(m, verbose=False, device="cuda"),
+    "cosine": lambda m: tsim.cosine(m, verbose=False, device="cuda"),
+    "cosine_default_device": lambda m: tsim.cosine(m, verbose=False),
+    "recommend": lambda m: tsim.recommend(m, (m.T @ m).tocsr(), verbose=False),
+    "p3alpha": lambda m: tsim.p3alpha(m, m.T, verbose=False),
+    "bm25": lambda m: tsim.bm25(m),
+    "tfidf": lambda m: tsim.tfidf(m, device="cuda"),
+    "normalize": lambda m: tsim.normalize(m),
+}
+
+
+def _small():
+    return sp.random_array((20, 10), density=0.2, format="csr", dtype=np.float32,
+                           random_state=np.random.default_rng(1))
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_cuda_without_a_card_raises(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[name](_small())
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the smoke would run for real")
+    proc = subprocess.run([sys.executable, str(SMOKE)], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_mesh_is_not_ported():
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        tsim.cosine(_small(), verbose=False, device="cpu", mesh=object())
