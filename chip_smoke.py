@@ -8,23 +8,44 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
 ``similaripy_tpu``. Each phase prints one JSON line with its `seconds`:
 
   0 device   the card, and `nvidia-smi --query-gpu=name,power.limit`
-  1 build    nvcc builds csrc/tile_topk.cu into similaripy_tpu_torch/_build/
-  2 parity   K1 against its plain PyTorch version at small ragged shapes, in
-             every mode (f32, bf16, int8) x carry x mask, with epilogue flag
-             sets; int8 bit-equal, f32/bf16 values within rtol 1e-5, ids equal
-             where values are not tied
+  1 build    nvcc builds csrc/*.cu (K1 tile_topk, K2 sym_topk, K5 scatter),
+             one process per source, into similaripy_tpu_torch/_build/
+  2 parity   each kernel against its plain PyTorch version on the card.
+             K1: small ragged shapes in every mode (f32, bf16, int8) x carry
+             x mask, with epilogue flag sets. K2: every mode, symmetric and
+             asymmetric epilogues, blocks with dead, diagonal and live anchor
+             rows, cold and warm carries, k > tc, and the main path's widths
+             (sw = 2,048, and sw = 18,432 whose col side takes more than one
+             shared-memory chunk) (tests/torch_k2_cases.py). K5: every mode
+             with sentinel padding. int8 bit-equal (through pow: 2 ulp),
+             f32/bf16 values within rtol 1e-5, ids equal where values are not
+             tied; K5 tiles bit-equal
   3 main     the main path at ML-32M width on the tracked .bench_data_1.0.npz
-             (200,948 users x 84,432 items): bm25 -> cosine(k=100) for 1,024
-             items -> recommend(k=10) for 1,024 users, and cosine on the raw
-             ratings (exact int8). Each call is held against the same call
-             through the plain version (nnz, check_sum rtol 1e-4; int8
-             identical), against a float64 SciPy oracle on 16 sampled rows,
-             and must have launched K1 and never its plain version; then the
-             first call's stages (preprocess, execute, assemble) are timed
-             with the preprocess cache emptied
-  4 times    K1 at the main path's shapes (the f32 and the int8 cosine's
-             panel x one tile): kernel, bound, plain and library
-             (torch.matmul + torch.topk, f32 only) times
+             (200,948 users x 84,432 items), driven through the public calls
+             with the launch counts set to 0 just before and read just after:
+             bm25 -> cosine(k=100) over ALL items (the symmetric route, K2 and
+             K5) -> recommend(k=10) for 1,024 users (the general route, K1);
+             cosine(k=100) for 1,024 items (the general route, K1); the exact
+             int8 cosine on the raw ratings over all items and for the 1,024
+             items; asymmetric_cosine(alpha=0.3) over the 16,384 most popular
+             items. Each call took its route, launched its kernels and no
+             plain version. Then the checks: recommend and the 1,024-item
+             cosines match the same calls through the plain versions (nnz,
+             check_sum rtol 1e-4; int8 identical); 64 sampled rows match a
+             float64 SciPy oracle (rtol 1e-4); the symmetric results' rows
+             at the 1,024 items match the general route's (nnz, check_sum
+             rtol 1e-5 for f32, equal values for int8); the asymmetric call
+             matches the general route on all its rows, and so does the same
+             call planned with anchor groups of three tiles; recommend never
+             returns a seen item
+  4 times    at the main path's shapes: K2 on a live off-diagonal block and a
+             diagonal block, K5 on one inner tile, K1 on a 1,024-item cosine
+             panel (f32 and int8) and a recommend panel: kernel, bound, plain
+             and library
+             (K2: torch.matmul + epilogue + torch.topk on both sides; K5:
+             index_put_; K1: torch.matmul or torch._int_mm + torch.topk);
+             K2's three launches and a warm repeat of the asymmetric call
+             under torch.profiler (device time by kernel, idle share)
 
 then the `kernels` line and, last, {"ok": true, "device": {...}}. Any failed
 check raises and the script exits non-zero; without a card it exits non-zero
@@ -45,13 +66,21 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(HERE, ".bench_data_1.0.npz")
 ML32M_SHAPE = (200_948, 84_432)
 N_TARGETS = 1024
-N_ORACLE_ROWS = 16
-TPU_KERNEL = "similaripy_tpu/engine/pallas_kernels.py::fused_tile_topk"
-TPU_KERNEL_LINE = "similaripy_tpu/engine/pallas_kernels.py:712"
+N_ORACLE_ROWS = 64
+N_POPULAR = 16_384
+KERNELS = {
+    "tile_topk": ("similaripy_tpu_torch/csrc/tile_topk.cu",
+                  "similaripy_tpu/engine/pallas_kernels.py:712"),
+    "sym_topk": ("similaripy_tpu_torch/csrc/sym_topk.cu",
+                 "similaripy_tpu/engine/pallas_kernels.py:1145"),
+    "scatter": ("similaripy_tpu_torch/csrc/scatter.cu",
+                "similaripy_tpu/engine/pallas_kernels.py:1301"),
+}
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+POW_RTOL = 2.0**-22  # int8 values through pow: two ulp (tests/torch_k1_cases.py)
 
 
 def emit(obj) -> None:
@@ -62,6 +91,42 @@ def check_sum(x) -> float:
     """Tie-robust scalar of a top-k matrix (tests/oracles.py::check_sum)."""
     aux = np.asarray(x.sum(axis=1), dtype=np.float64).ravel()
     return float(np.sum(aux**2))
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _not_tied(v, rel):
+    """(k, rows) mask of finite values clear of both neighbours."""
+    out = np.isfinite(v)
+    with np.errstate(invalid="ignore"):
+        gap = np.abs(np.diff(v, axis=0)) > rel * np.maximum(np.abs(v[1:]), 1e-30)
+    out[1:] &= gap
+    out[:-1] &= gap
+    return out
+
+
+def _compare(where, mode, got, ref, use_pow=False):
+    """(values, ids) of (k, rows) against the plain version; returns the
+    largest absolute difference."""
+    (kv, ki), (pv, pi) = got, ref
+    fin = np.isfinite(pv)
+    if not np.array_equal(np.isfinite(kv), fin):
+        raise AssertionError(f"parity {where}: finite slots differ")
+    if mode == "int8" and not use_pow:
+        if not np.array_equal(kv, pv):
+            raise AssertionError(f"parity {where}: int8 values not bit-equal")
+        rel = 0.0
+    else:
+        rel = POW_RTOL if mode == "int8" else 1e-5
+        np.testing.assert_allclose(kv[fin], pv[fin], rtol=rel, atol=0,
+                                   err_msg=f"parity {where}")
+    ok = _not_tied(pv, rel)
+    if not np.array_equal(ki[ok], pi[ok]):
+        raise AssertionError(f"parity {where}: ids differ at untied values")
+    return float(np.max(np.abs(kv[fin] - pv[fin]))) if fin.any() else 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -97,22 +162,7 @@ FLAG_SETS = [
 SHAPES = [(37, 300, 200, 8), (130, 515, 333, 100), (64, 260, 1100, 1024)]
 
 
-def _not_tied(v, rel):
-    """(k, rows) mask of finite values clear of both neighbours."""
-    out = np.isfinite(v)
-    with np.errstate(invalid="ignore"):
-        gap = np.abs(np.diff(v, axis=0)) > rel * np.maximum(np.abs(v[1:]), 1e-30)
-    out[1:] &= gap
-    out[:-1] &= gap
-    return out
-
-
-def _sync(torch, dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
-def phase_parity(torch, tt, dev):
+def parity_k1(torch, tt, dev):
     rng = np.random.default_rng(0)
     cases = 0
     max_err = {"f32": 0.0, "bf16": 0.0, "int8": 0.0}
@@ -127,8 +177,7 @@ def phase_parity(torch, tt, dev):
                 pv[:9] = p
                 pv[9] = 0.25 if mode == "int8" else 1.0
                 pv[10] = 3 * tc  # col_base
-                args = [torch.from_numpy(x).to(dev) for x in (a, d)]
-                args[0], args[1] = args[0].to(dtypes[mode]), args[1].to(dtypes[mode])
+                args = [torch.from_numpy(x).to(dev).to(dtypes[mode]) for x in (a, d)]
                 args += [torch.from_numpy(v).to(dev) for v in vecs]
                 args.append(torch.from_numpy(pv).to(dev))
                 kw = dict(flags=flags, k_pad=k_pad, int8_mode=mode == "int8")
@@ -146,28 +195,56 @@ def phase_parity(torch, tt, dev):
                     pv0[10] = 0
                     prev.append(torch.from_numpy(pv0).to(dev))
                     kw["carry"] = tt.fused_tile_topk_plain(*prev, **kw)
-                kv, ki_ = tt.fused_tile_topk(*args, **kw)
-                pv_, pi_ = tt.fused_tile_topk_plain(*args, **kw)
+                got = tt.fused_tile_topk(*args, **kw)
+                ref = tt.fused_tile_topk_plain(*args, **kw)
                 _sync(torch, dev)
-                kv, ki_, pv_, pi_ = (t.cpu().numpy() for t in (kv, ki_, pv_, pi_))
-                where = f"{mode} carry={carry_on} mask={mask} shape={(trp, u, tc, k_pad)}"
-                fin = np.isfinite(pv_)
-                if not np.array_equal(np.isfinite(kv), fin):
-                    raise AssertionError(f"parity {where}: finite slots differ")
-                if mode == "int8":
-                    if not np.array_equal(kv, pv_):
-                        raise AssertionError(f"parity {where}: int8 values not bit-equal")
-                    ok_ids = _not_tied(pv_, 0.0)
-                else:
-                    np.testing.assert_allclose(kv[fin], pv_[fin], rtol=1e-5, atol=0,
-                                               err_msg=f"parity {where}")
-                    ok_ids = _not_tied(pv_, 1e-5)
-                if not np.array_equal(ki_[ok_ids], pi_[ok_ids]):
-                    raise AssertionError(f"parity {where}: ids differ at untied values")
-                if fin.any():
-                    max_err[mode] = max(max_err[mode], float(np.max(np.abs(kv[fin] - pv_[fin]))))
+                got, ref = [tuple(t.cpu().numpy() for t in x) for x in (got, ref)]
+                where = f"K1 {mode} carry={carry_on} mask={mask} shape={(trp, u, tc, k_pad)}"
+                err = _compare(where, mode, got, ref)
+                max_err[mode] = max(max_err[mode], err)
                 cases += 1
     return {"cases": cases, "max_abs_err": max_err}
+
+
+def parity_k2(torch, st, dev):
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_k2_cases import CARD_CASES, CASES, EPILOGUES, case_id, make_inputs, torch_fn
+
+    max_err = {"f32": 0.0, "bf16": 0.0, "int8": 0.0}
+    for case in CASES + CARD_CASES:
+        mode = case["mode"]
+        plain = torch_fn(st.fused_sym_topk_plain, mode, device=dev.type)
+        args, kw = make_inputs(case, plain)
+        got = torch_fn(st.fused_sym_topk, mode, device=dev.type)(*args, **kw)
+        ref = plain(*args, **kw)
+        use_pow = EPILOGUES[case["epi"]][0][3]
+        for side, sl in (("row", slice(0, 2)), ("col", slice(2, 4))):
+            err = _compare(f"K2 {case_id(case)} {side}", mode, got[sl], ref[sl], use_pow)
+            max_err[mode] = max(max_err[mode], err)
+    return {"cases": len(CASES) + len(CARD_CASES), "max_abs_err": max_err}
+
+
+def parity_k5(torch, sc, dev):
+    rng = np.random.default_rng(5)
+    g, u_pad, tc, p2 = 2, 4096, 2048, 300_000
+    cases = 0
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16), ("int8", torch.int8)):
+        ru = np.full((g, p2), u_pad, np.int32)  # the sentinel pads every row's tail
+        sl = np.zeros((g, p2), np.int32)
+        vv = np.zeros((g, p2), np.float32)
+        for t in range(g):
+            n = p2 - 7_777 * (t + 1)
+            cells = rng.choice(u_pad * tc, n, replace=False)
+            ru[t, :n], sl[t, :n] = cells // tc, cells % tc
+            vv[t, :n] = rng.integers(-6, 7, n) if name == "int8" else rng.random(n) + 0.1
+        args = [torch.from_numpy(a).to(dev) for a in (ru, sl, vv)]
+        got = sc.densify_tiles(*args, u_pad=u_pad, tc=tc, cdt=dt)
+        ref = sc.densify_tiles_plain(*args, u_pad=u_pad, tc=tc, cdt=dt)
+        _sync(torch, dev)
+        if got.dtype != dt or not torch.equal(got, ref):
+            raise AssertionError(f"parity K5 {name}: tiles differ from the plain version")
+        cases += 1
+    return {"cases": cases, "max_abs_err": 0.0}
 
 
 # ---------------------------------------------------------------------------
@@ -208,7 +285,26 @@ def _check_oracle(name, got, rows, expect):
         np.testing.assert_allclose(g, e, rtol=1e-4, err_msg=f"{name}: row {r} vs float64 oracle")
 
 
+def _same_rows(name, got, ref, rows, exact):
+    """The rows `rows` of two results: equal nnz; check_sum within rtol
+    1e-5, or (exact) the same values in every row."""
+    got, ref = got.tocsr()[rows], ref.tocsr()[rows]
+    if got.nnz != ref.nnz:
+        raise AssertionError(f"{name}: nnz {got.nnz} vs the general route's {ref.nnz}")
+    if exact:
+        for r in range(got.shape[0]):
+            a = np.sort(got.data[got.indptr[r]:got.indptr[r + 1]])
+            b = np.sort(ref.data[ref.indptr[r]:ref.indptr[r + 1]])
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name}: row {rows[r]} values differ from the general route")
+    else:
+        np.testing.assert_allclose(check_sum(got), check_sum(ref), rtol=1e-5,
+                                   err_msg=f"{name}: check_sum vs the general route")
+
+
 def _same(name, got, ref, exact):
+    """A call against the same call through the plain versions: equal nnz;
+    check_sum within rtol 1e-4, or (exact) the identical CSR."""
     got, ref = got.tocsr(), ref.tocsr()
     if got.nnz != ref.nnz:
         raise AssertionError(f"{name}: nnz {got.nnz} vs plain {ref.nnz}")
@@ -221,78 +317,122 @@ def _same(name, got, ref, exact):
                                    err_msg=f"{name}: check_sum vs plain")
 
 
-def phase_main(torch, sim, tt, ex, urm, dev, n_targets=N_TARGETS):
+def phase_main(torch, sim, counters, ex, urm, dev):
     """The main path on `urm` (users x items, f32 half-star ratings)."""
+    from similaripy_tpu_torch.engine import symmetric
     from similaripy_tpu_torch.engine.assembly import assemble
     from similaripy_tpu_torch.engine.params import SPlusParams
-    from similaripy_tpu_torch.engine.preprocess import clear_prep_cache, preprocess
+    from similaripy_tpu_torch.engine.preprocess import preprocess
 
     rng = np.random.default_rng(0)
-    items = np.sort(rng.choice(urm.shape[1], n_targets, replace=False))
-    users = np.sort(rng.choice(urm.shape[0], n_targets, replace=False))
+    C = urm.shape[1]
+    items = np.sort(rng.choice(C, N_TARGETS, replace=False))
+    users = np.sort(rng.choice(urm.shape[0], N_TARGETS, replace=False))
+    sample = np.sort(rng.choice(C, N_ORACLE_ROWS, replace=False))
+    popular = np.sort(np.argsort(-np.diff(urm.tocsc().indptr), kind="stable")[:N_POPULAR])
+    common = dict(verbose=False, format_output="csr", device=dev)
 
-    t0 = time.perf_counter()
-    urm_n = sim.bm25(urm, device=dev)
-    _sync(torch, dev)
-    bm25_s = time.perf_counter() - t0
+    calls = {}
 
-    def staged(m1, m2, params, k, targets, filt=None, tile_fn="plain", **prep):
-        """The call through the engine's stages, each timed: preprocess,
-        execute (K1's kernel or its plain version), assemble."""
-        t = [time.perf_counter()]
-        pre = preprocess(m1, m2 if m2 is not None else m1.T, k=k, target_rows=targets,
-                         filter_cols=filt, self_similar=m2 is None, **prep)
-        t.append(time.perf_counter())
-        vals, idx = ex.execute(pre, params, compute_dtype="auto", device=dev, _tile_fn=tile_fn)
-        _sync(torch, dev)
-        t.append(time.perf_counter())
-        out = assemble(vals, idx, pre.targets, pre.n_output_rows, pre.n_output_cols, "csr")
-        t.append(time.perf_counter())
-        stages = dict(zip(("preprocess_s", "execute_s", "assemble_s"), np.diff(t).tolist()))
-        return out, stages
-
-    calls = []
-
-    def run(name, kernel_fn, plain_fn, exact, oracle):
-        tt.reset_counts()
+    def call(key, name, fn, route):
+        for c in counters.values():
+            c.reset_counts()
         t = time.perf_counter()
-        got = kernel_fn()
+        out = fn()
         _sync(torch, dev)
         wall = time.perf_counter() - t
-        launches, plain_calls = tt.kernel_launches, tt.plain_calls
-        plan = dict(ex.last_plan)
-        if dev.type == "cuda" and (launches == 0 or plain_calls != 0):
-            raise AssertionError(f"{name}: kernel_launches={launches} plain_calls={plain_calls}")
-        t = time.perf_counter()
-        ref, plain_stages = plain_fn()
-        plain_wall = time.perf_counter() - t
-        _same(name, got, ref, exact)
-        rows, expect = oracle(got)
-        _check_oracle(name, got, rows, expect)
-        calls.append({"call": name, "seconds": wall, "plain_seconds": plain_wall,
-                      "plain_stages": plain_stages,
-                      "launches": launches, "nnz": int(got.nnz),
-                      "check_sum": check_sum(got), "plan": plan})
-        return got
+        launches = {k: c.kernel_launches for k, c in counters.items()}
+        plain = {k: c.plain_calls for k, c in counters.items()}
+        if ex.last_route != route:
+            raise AssertionError(f"{name}: took the {ex.last_route} route, not {route}")
+        used = ("sym_topk", "scatter") if route == "symmetric" else ("tile_topk",)
+        if any(launches[k] == 0 for k in used) or any(plain.values()):
+            raise AssertionError(f"{name}: launches {launches}, plain calls {plain}")
+        calls[key] = {"call": name, "route": route, "seconds": wall, "launches": launches,
+                      "nnz": int(out.nnz), "check_sum": check_sum(out),
+                      "plan": dict(ex.last_plan)}
+        return out
 
-    common = dict(verbose=False, format_output="csr", device=dev)
-    sample = np.sort(rng.choice(items, N_ORACLE_ROWS, replace=False))
-    item_t = urm_n.T.tocsr()
-    W = run(
-        "cosine(bm25(urm).T, k=100)",
-        lambda: sim.cosine(urm_n.T, k=100, target_rows=items, **common),
-        lambda: staged(item_t, None, SPlusParams(l2=1), 100, items, l2=1, c1=0.5, c2=0.5),
-        False,
-        lambda got: (sample, _oracle_rows(item_t, urm_n, sample, 100, l2=True)),
-    )
+    def plain_route(m1, m2, params, k, targets, filt=None, **prep):
+        """The same call through the engine with the plain versions."""
+        pre = preprocess(m1, m2 if m2 is not None else m1.T, k=k, target_rows=targets,
+                         filter_cols=filt, self_similar=m2 is None, **prep)
+        vals, idx = ex.execute(pre, params, compute_dtype="auto", device=dev, _tile_fn="plain")
+        return assemble(vals, idx, pre.targets, pre.n_output_rows, pre.n_output_cols, "csr")
+
+    # the main path, every count read right after its call: the model build
+    # over all items (symmetric route), scoring, the targeted cosine over
+    # 1,024 items (general route), the same in int8, and an asymmetric build
+    t = time.perf_counter()
+    urm_n = sim.bm25(urm, device=dev)
+    _sync(torch, dev)
+    bm25_s = time.perf_counter() - t
+    W = call("cosine", "cosine(bm25(urm).T, k=100)",
+             lambda: sim.cosine(urm_n.T, k=100, **common), "symmetric")
+    recs = call("recommend", "recommend(bm25(urm), W, k=10)",
+                lambda: sim.recommend(urm_n, W, k=10, target_rows=users, **common), "general")
+    G = call("cosine_targeted", "cosine(bm25(urm).T, k=100), 1,024 items",
+             lambda: sim.cosine(urm_n.T, k=100, target_rows=items, **common), "general")
+    W8 = call("cosine_int8", "cosine(urm.T, k=100) int8",
+              lambda: sim.cosine(urm.T, k=100, **common), "symmetric")
+    G8 = call("cosine_int8_targeted", "cosine(urm.T, k=100) int8, 1,024 items",
+              lambda: sim.cosine(urm.T, k=100, target_rows=items, **common), "general")
+    for key in ("cosine_int8", "cosine_int8_targeted"):
+        if calls[key]["plan"]["compute_dtype"] != "int8":
+            raise AssertionError(f"{key} ran {calls[key]['plan']['compute_dtype']}, not int8")
+    pop_t = urm_n[:, popular].T.tocsr()
+    A = call("asymmetric_cosine", "asymmetric_cosine(bm25(urm)[:, popular].T, alpha=0.3, k=100)",
+             lambda: sim.asymmetric_cosine(pop_t, alpha=0.3, k=100, **common), "symmetric")
+    if not calls["asymmetric_cosine"]["plan"]["asym"]:
+        raise AssertionError("asymmetric_cosine did not run the asymmetric epilogue")
+
+    # checks
+    checks = {}
+    t = time.perf_counter()
+    item_t, raw_t = urm_n.T.tocsr(), urm.T.tocsr()
+    cos = dict(l2=1, c1=0.5, c2=0.5)
+    _same("recommend", recs, plain_route(urm_n, W.T.tocsr(), SPlusParams(), 10, users,
+                                         filt=urm_n), exact=False)
+    _same("cosine, 1,024 items", G,
+          plain_route(item_t, None, SPlusParams(l2=1), 100, items, **cos), exact=False)
+    _same("cosine int8, 1,024 items", G8,
+          plain_route(raw_t, None, SPlusParams(l2=1), 100, items, **cos), exact=True)
+    checks["plain_route_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    _check_oracle("cosine", W, sample, _oracle_rows(item_t, urm_n, sample, 100, l2=True))
+    _check_oracle("cosine int8", W8, sample, _oracle_rows(raw_t, urm, sample, 100, l2=True))
     usample = np.sort(rng.choice(users, N_ORACLE_ROWS, replace=False))
-    recs = run(
-        "recommend(bm25(urm), W, k=10)",
-        lambda: sim.recommend(urm_n, W, k=10, target_rows=users, **common),
-        lambda: staged(urm_n, W.T.tocsr(), SPlusParams(), 10, users, filt=urm_n),
-        False,
-        lambda got: (usample, _oracle_rows(urm_n, W.T, usample, 10, l2=False, filt=urm_n)),
-    )
+    _check_oracle("recommend", recs, usample,
+                  _oracle_rows(urm_n, W.T, usample, 10, l2=False, filt=urm_n))
+    checks["oracle_s"] = time.perf_counter() - t
+
+    # the symmetric route against the general route on the same rows
+    t = time.perf_counter()
+    _same_rows("cosine", W, G, items, exact=False)
+    _same_rows("cosine int8", W8, G8, items, exact=True)
+    rev = np.arange(N_POPULAR)[::-1].copy()  # not natural order: the general route
+    general_a = sim.asymmetric_cosine(pop_t, alpha=0.3, k=100, target_rows=rev, **common)
+    if ex.last_route != "general":
+        raise AssertionError("the reversed-rows asymmetric_cosine did not take the general route")
+    _same_rows("asymmetric_cosine", A, general_a, np.arange(N_POPULAR), exact=False)
+    checks["general_route_s"] = time.perf_counter() - t
+
+    # the same call with anchor groups of three 1,024-wide tiles (the main
+    # path plans one tile per group): band sweeps with dead and diagonal
+    # blocks, second anchors sliced, and padding tiles (16 tiles -> 18)
+    t = time.perf_counter()
+    real_plan = symmetric._plan
+    symmetric._plan = lambda *a: (1024, 3, real_plan(*a)[2])
+    try:
+        grouped = sim.asymmetric_cosine(pop_t, alpha=0.3, k=100, **common)
+    finally:
+        symmetric._plan = real_plan
+    if (ex.last_route, ex.last_plan["gt"], ex.last_plan["n_tiles"]) != ("symmetric", 3, 18):
+        raise AssertionError(f"grouped plan not taken: {ex.last_route} {ex.last_plan}")
+    _same_rows("asymmetric_cosine gt=3", grouped, A, np.arange(N_POPULAR), exact=False)
+    checks["grouped_plan_s"] = time.perf_counter() - t
+
     seen = urm_n[users].tocsr()
     recs_u = recs.tocsr()[users]
     for r in range(users.shape[0]):
@@ -300,27 +440,13 @@ def phase_main(torch, sim, tt, ex, urm, dev, n_targets=N_TARGETS):
         g = recs_u.indices[recs_u.indptr[r]:recs_u.indptr[r + 1]].tolist()
         if s.intersection(g):
             raise AssertionError(f"recommend: user {users[r]} got a seen item")
-    raw_t = urm.T.tocsr()
-    run(
-        "cosine(urm.T, k=100) int8",
-        lambda: sim.cosine(urm.T, k=100, target_rows=items, **common),
-        lambda: staged(raw_t, None, SPlusParams(l2=1), 100, items, l2=1, c1=0.5, c2=0.5),
-        True,
-        lambda got: (sample, _oracle_rows(raw_t, urm, sample, 100, l2=True)),
-    )
-    if calls[-1]["plan"]["compute_dtype"] != "int8":
-        raise AssertionError(f"raw-ratings cosine ran {calls[-1]['plan']['compute_dtype']}, not int8")
-
-    # where the first call's wall goes: its stages through the kernel
-    # route, with the preprocess cache emptied so preprocessing runs cold
-    clear_prep_cache()
-    _, breakdown = staged(item_t, None, SPlusParams(l2=1), 100, items, tile_fn="kernel",
-                          l2=1, c1=0.5, c2=0.5)
-    return {"bm25_seconds": bm25_s, "calls": calls, "cosine_stages": breakdown}, urm_n, items
+    state = {"urm_n": urm_n, "W": W, "users": users, "items": items, "pop_t": pop_t,
+             "plans": {k: c["plan"] for k, c in calls.items()}}
+    return {"bm25_seconds": bm25_s, "calls": list(calls.values()), "checks": checks}, state
 
 
 # ---------------------------------------------------------------------------
-# phase 4: K1 at the main path's shape
+# phase 4: the kernels at the main path's shapes
 # ---------------------------------------------------------------------------
 
 
@@ -338,9 +464,39 @@ def _time_ms(torch, fn, reps):
     return float(np.median(times))
 
 
+def _profile(torch, fn):
+    """One warm run of `fn` under torch.profiler: its wall, the device time
+    of every kernel and copy (summed by name), and the device's idle share
+    of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    device = {}
+    for e in prof.key_averages():
+        ms = getattr(e, "self_device_time_total", 0) / 1e3
+        if ms > 0:
+            device[e.key[:90]] = {"ms": ms, "count": e.count}
+    busy = sum(v["ms"] for v in device.values())
+    top = dict(sorted(device.items(), key=lambda kv: -kv[1]["ms"])[:6])
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": (1.0 - busy / wall_ms) if busy else None, "top": top}
+
+
+def _bound(ops, nbytes, int8):
+    ops_ms = 1e3 * ops / (PEAK_INT8_OPS if int8 else PEAK_F32_FLOPS)
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
 def _time_k1(torch, tt, panel, tile, plan, int8):
-    """Time K1 (kernel, plain, library yardstick) on one panel x tile of the
-    main path, as cosine, and check the kernel against the plain version."""
+    """K1 (kernel, plain, library yardstick) on one panel x tile of the
+    main path, as cosine, checked against the plain version."""
     dev = torch.device("cuda")
     trp, u_pad, tc, k_pad = plan["trp"], plan["u_pad"], plan["tc"], plan["k_pad"]
     dtype = torch.int8 if int8 else torch.float32
@@ -366,49 +522,174 @@ def _time_k1(torch, tt, panel, tile, plan, int8):
              torch.zeros((k_pad, trp), dtype=torch.int32, device=dev))
     args = (a, d, ones_r, xn, ones_r, ones_c, yn, ones_c, pvec)
     kw = dict(carry=carry, flags=flags, k_pad=k_pad, int8_mode=int8)
-
-    kv, _ = tt.fused_tile_topk(*args, **kw)
-    pv, _ = tt.fused_tile_topk_plain(*args, **kw)
-    fin = torch.isfinite(pv)
-    if not torch.equal(torch.isfinite(kv), fin):
-        raise AssertionError("times: finite slots differ between kernel and plain")
-    if int8:
-        if not torch.equal(kv, pv):
-            raise AssertionError("times: int8 kernel not bit-equal to the plain version")
-    else:
-        torch.testing.assert_close(kv[fin], pv[fin], rtol=1e-5, atol=0)
-    err = float((kv[fin] - pv[fin]).abs().max()) if bool(fin.any()) else 0.0
+    got = [t.cpu().numpy() for t in tt.fused_tile_topk(*args, **kw)]
+    ref = [t.cpu().numpy() for t in tt.fused_tile_topk_plain(*args, **kw)]
+    err = _compare("times K1", "int8" if int8 else "f32", got, ref)
 
     kernel_ms = _time_ms(torch, lambda: tt.fused_tile_topk(*args, **kw), 5)
     plain_ms = _time_ms(torch, lambda: tt.fused_tile_topk_plain(*args, **kw), 3)
-    library_ms = None
-    if not int8:  # torch.matmul has no integer kernel on CUDA
+    if int8:
+        def library():
+            return torch.topk(torch._int_mm(a, d), k_pad, dim=1)
+    else:
         def library():
             return torch.topk(torch.matmul(a, d), k_pad, dim=1)
-
-        library_ms = _time_ms(torch, library, 5)
-    ops = 2.0 * trp * u_pad * tc
+    library_ms = _time_ms(torch, library, 5)
     item = a.element_size()
     nbytes = item * (trp * u_pad + u_pad * tc) + 4.0 * (3 * trp + 3 * tc + 16 + 4 * k_pad * trp)
-    ops_ms = 1e3 * ops / (PEAK_INT8_OPS if int8 else PEAK_F32_FLOPS)
-    bytes_ms = 1e3 * nbytes / PEAK_BYTES
+    bound_ms, bound_by = _bound(2.0 * trp * u_pad * tc, nbytes, int8)
     return {
         "shape": {"trp": trp, "u_pad": u_pad, "tc": tc, "k_pad": k_pad,
                   "dtype": "int8" if int8 else "float32"},
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "kernel_tops": ops / kernel_ms / 1e9, "max_abs_err": err,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "kernel_tops": 2.0 * trp * u_pad * tc / kernel_ms / 1e9, "max_abs_err": err,
     }
 
 
-def phase_times(torch, tt, urm, urm_n, items, plans):
-    """K1 on the main path's first panel against one tile: the f32 cosine's
-    geometry on bm25 weights, and the int8 cosine's on raw ratings."""
+def _sym_setup(torch, m_items, compute_dtype, plan, **prep):
+    """The main path's symmetric geometry for `m_items` (items x users):
+    its cached device COO and vectors, as the executor holds them."""
+    from similaripy_tpu_torch.engine import symmetric
+    from similaripy_tpu_torch.engine.preprocess import preprocess
+
+    dev = torch.device("cuda")
+    pre = preprocess(m_items, m_items.T, k=100, self_similar=True, **prep)
+    coo, vecs, _ = symmetric.cached_prep_symmetric(
+        pre, compute_dtype, plan["tc"], plan["n_tiles"], plan["u_pad"], dev)
+    return coo, vecs
+
+
+def _time_k2(torch, st, sc, coo, vecs, plan, params, int8, diagonal):
+    """K2 on one block of the main path: the first anchor group against a
+    live tile right of it, or against its own first tile (diagonal)."""
+    from similaripy_tpu_torch.engine.params import build_pvec
+
+    dev = torch.device("cuda")
+    tc, gt, u_pad, k_pad = plan["tc"], plan["gt"], plan["u_pad"], plan["k_pad"]
+    sw = gt * tc
+    cdt = torch.int8 if int8 else torch.float32
+    anchors = sc.densify_tiles(coo["ru"][:gt], coo["sl"][:gt], coo["vv"][:gt],
+                               u_pad=u_pad, tc=tc, cdt=cdt)
+    t = 0 if diagonal else plan["n_tiles"] - 1
+    d = anchors[0] if diagonal else sc.densify_tiles(
+        coo["ru"][t:t + 1], coo["sl"][t:t + 1], coo["vv"][t:t + 1], u_pad=u_pad, tc=tc, cdt=cdt)[0]
+    pv = np.zeros(16, np.float32)
+    pv[:10] = build_pvec(params, 0.25 if int8 else 1.0)
+    pv[10:14] = (t * tc, 0, t, 0)
+    crv = torch.full((k_pad, sw), float("-inf"), device=dev)
+    cri = torch.zeros((k_pad, sw), dtype=torch.int32, device=dev)
+    ccv = torch.full((k_pad, tc), float("-inf"), device=dev)
+    cci = torch.zeros((k_pad, tc), dtype=torch.int32, device=dev)
+    x = [vecs[f"x_{n}"][:gt].reshape(-1) for n in "tcd"]
+    y = [vecs[f"y_{n}"][t] for n in "tcd"]
+    args = (anchors, d, *x, *y, crv, cri, crv[k_pad - 1].view(sw, 1), ccv, cci,
+            torch.from_numpy(pv).to(dev))
+    kw = dict(flags=params.static_flags(), k=k_pad, tc=tc, int8_mode=int8)
+    mode = "int8" if int8 else "f32"
+    got = [o.cpu().numpy() for o in st.fused_sym_topk(*args, **kw)]
+    ref = [o.cpu().numpy() for o in st.fused_sym_topk_plain(*args, **kw)]
+    err = max(_compare(f"times K2 {side}", mode, got[s], ref[s])
+              for side, s in (("row", slice(0, 2)), ("col", slice(2, 4))))
+
+    kernel_ms = _time_ms(torch, lambda: st.fused_sym_topk(*args, **kw), 5)
+    launches = _profile(torch, lambda: st.fused_sym_topk(*args, **kw))
+    plain_ms = _time_ms(torch, lambda: st.fused_sym_topk_plain(*args, **kw), 3)
+    from similaripy_tpu_torch.engine.tile_topk import splus_epilogue
+
+    pvl = pv.tolist()
+    a2 = anchors.transpose(1, 2).reshape(sw, u_pad)  # (sw, u_pad), a view for gt = 1
+    if int8:
+        a2 = a2.contiguous()  # cuBLASLt's int8 product takes row-major operands
+
+    def library():
+        if int8:
+            xy = torch._int_mm(a2, d).float() * pvl[9]
+        else:
+            xy = torch.matmul(a2, d)
+        val = splus_epilogue(xy, xy != 0, *x, *y, pvl, kw["flags"])
+        return torch.topk(val, k_pad, dim=1), torch.topk(val.T, k_pad, dim=1)
+
+    library_ms = _time_ms(torch, library, 3)
+    n_live = min((t + 1) * tc, sw)  # every anchor row is live here (t >= a0 = 0)
+    ops = 2.0 * n_live * tc * u_pad
+    item = anchors.element_size()
+    nbytes = (item * (sw * u_pad + u_pad * tc) + 4.0 * (6 * sw + 6 * tc + 16)
+              + 2 * 8.0 * k_pad * (sw + tc))  # carries in and out, values and ids
+    bound_ms, bound_by = _bound(ops, nbytes, int8)
     return {
-        "f32": _time_k1(torch, tt, urm_n.T.tocsr()[items], urm_n.tocsc(), plans[0], False),
-        "int8": _time_k1(torch, tt, urm.T.tocsr()[items], urm.tocsc(), plans[2], True),
+        "block": "diagonal" if diagonal else "live off-diagonal",
+        "shape": {"sw": sw, "tc": tc, "u_pad": u_pad, "k_pad": k_pad, "t": t,
+                  "dtype": "int8" if int8 else "float32"},
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "kernel_tops": ops / kernel_ms / 1e9, "max_abs_err": err,
+        "profile": launches,
     }
+
+
+def _time_k5(torch, sc, coo, plan, int8):
+    """K5 on one inner tile of the main path."""
+    tc, u_pad = plan["tc"], plan["u_pad"]
+    cdt = torch.int8 if int8 else torch.float32
+    t = plan["n_tiles"] - 1
+    ru, sl, vv = coo["ru"][t:t + 1], coo["sl"][t:t + 1], coo["vv"][t:t + 1]
+    got = sc.densify_tiles(ru, sl, vv, u_pad=u_pad, tc=tc, cdt=cdt)
+    ref = sc.densify_tiles_plain(ru, sl, vv, u_pad=u_pad, tc=tc, cdt=cdt)
+    if not torch.equal(got, ref):
+        raise AssertionError("times K5: tile differs from the plain version")
+    keep = ru[0] < u_pad
+    flat = ru[0][keep].long() * tc + sl[0][keep].long()
+    vals = vv[0][keep].to(cdt)
+
+    def library():
+        out = torch.zeros(u_pad * tc, dtype=cdt, device=ru.device)
+        return out.index_put_((flat,), vals, accumulate=True)
+
+    kernel_ms = _time_ms(torch, lambda: sc.densify_tiles(ru, sl, vv, u_pad=u_pad, tc=tc, cdt=cdt), 5)
+    plain_ms = _time_ms(torch, lambda: sc.densify_tiles_plain(ru, sl, vv, u_pad=u_pad, tc=tc, cdt=cdt), 3)
+    library_ms = _time_ms(torch, library, 5)
+    nbytes = 12.0 * ru.shape[1] + u_pad * tc * got.element_size()
+    bound_ms, bound_by = _bound(0.0, nbytes, int8)
+    return {
+        "shape": {"u_pad": u_pad, "tc": tc, "p2": int(ru.shape[1]), "entries": int(keep.sum()),
+                  "dtype": "int8" if int8 else "float32"},
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "kernel_gbps": nbytes / kernel_ms / 1e6, "max_abs_err": 0.0,
+    }
+
+
+def phase_times(torch, sim, tt, st, sc, urm, state):
+    from similaripy_tpu_torch.engine.params import SPlusParams
+
+    plans, urm_n = state["plans"], state["urm_n"]
+    cos = SPlusParams(l2=1)
+    cos_prep = dict(l2=1.0, c1=0.5, c2=0.5)
+    out = {}
+    coo, vecs = _sym_setup(torch, urm_n.T.tocsr(), "float32", plans["cosine"], **cos_prep)
+    out["K2_f32_live"] = _time_k2(torch, st, sc, coo, vecs, plans["cosine"], cos, False, False)
+    out["K2_f32_diagonal"] = _time_k2(torch, st, sc, coo, vecs, plans["cosine"], cos, False, True)
+    out["K5_f32"] = _time_k5(torch, sc, coo, plans["cosine"], False)
+    del coo, vecs
+    coo, vecs = _sym_setup(torch, urm.T.tocsr(), "int8", plans["cosine_int8"], **cos_prep)
+    out["K2_int8_live"] = _time_k2(torch, st, sc, coo, vecs, plans["cosine_int8"], cos, True, False)
+    out["K5_int8"] = _time_k5(torch, sc, coo, plans["cosine_int8"], True)
+    del coo, vecs
+    # where a warm symmetric call's wall goes, and the device's idle share
+    out["asymmetric_cosine_profile"] = _profile(torch, lambda: sim.asymmetric_cosine(
+        state["pop_t"], alpha=0.3, k=100, verbose=False, device="cuda"))
+    # K1 on the main path's general-route calls: the 1,024-item cosine panel
+    # against one tile (f32 and int8), and a recommend panel against a tile
+    # of W
+    items = state["items"]
+    out["K1_f32"] = _time_k1(torch, tt, urm_n.T.tocsr()[items], urm_n.tocsc(),
+                             plans["cosine_targeted"], False)
+    out["K1_int8"] = _time_k1(torch, tt, urm.T.tocsr()[items], urm.tocsc(),
+                              plans["cosine_int8_targeted"], True)
+    out["K1_f32_recommend"] = _time_k1(torch, tt, urm_n.tocsr()[state["users"]],
+                                       state["W"].T.tocsc(), plans["recommend"], False)
+    return out
 
 
 def main() -> int:
@@ -421,6 +702,8 @@ def main() -> int:
     import similaripy_tpu_torch as sim
     from similaripy_tpu_torch.engine import build
     from similaripy_tpu_torch.engine import executor as ex
+    from similaripy_tpu_torch.engine import scatter as sc
+    from similaripy_tpu_torch.engine import sym_topk as st
     from similaripy_tpu_torch.engine import tile_topk as tt
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 means f32 everywhere here
@@ -441,11 +724,13 @@ def main() -> int:
     lib_path = build.build()
     build.load()
     emit({"phase": "build", "library": os.path.relpath(lib_path, HERE),
+          "sources": [os.path.relpath(p, HERE) for p in build.sources()],
           "seconds": time.perf_counter() - t0})
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    parity = phase_parity(torch, tt, dev)
+    parity = {"K1": parity_k1(torch, tt, dev), "K2": parity_k2(torch, st, dev),
+              "K5": parity_k5(torch, sc, dev)}
     emit({"phase": "parity", **parity, "seconds": time.perf_counter() - t0})
 
     import scipy.sparse as sp
@@ -456,33 +741,40 @@ def main() -> int:
         raise AssertionError(f"{DATA} has shape {urm.shape}, expected {ML32M_SHAPE}")
     load_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    main_path, urm_n, items = phase_main(torch, sim, tt, ex, urm, dev)
+    counters = {"tile_topk": tt, "sym_topk": st, "scatter": sc}
+    main_path, state = phase_main(torch, sim, counters, ex, urm, dev)
     emit({"phase": "main", "load_seconds": load_s, **main_path,
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
-    times = phase_times(torch, tt, urm, urm_n, items, [c["plan"] for c in main_path["calls"]])
+    times = phase_times(torch, sim, tt, st, sc, urm, state)
     emit({"phase": "times", **times, "seconds": time.perf_counter() - t0})
 
-    launches = sum(c["launches"] for c in main_path["calls"])
-    max_err = max([times["f32"]["max_abs_err"], times["int8"]["max_abs_err"],
-                   *parity["max_abs_err"].values()])
-    f32 = times["f32"]
+    launches = {k: sum(c["launches"][k] for c in main_path["calls"]) for k in KERNELS}
+    timed = {"tile_topk": times["K1_f32"], "sym_topk": times["K2_f32_live"],
+             "scatter": times["K5_f32"]}
+    errs = {
+        "tile_topk": max(times["K1_f32"]["max_abs_err"], times["K1_int8"]["max_abs_err"],
+                         times["K1_f32_recommend"]["max_abs_err"],
+                         *parity["K1"]["max_abs_err"].values()),
+        "sym_topk": max(times["K2_f32_live"]["max_abs_err"],
+                        times["K2_f32_diagonal"]["max_abs_err"],
+                        *parity["K2"]["max_abs_err"].values()),
+        "scatter": 0.0,
+    }
     emit({"kernels": [{
-        "name": "tile_topk",
+        "name": name,
         "route": "cuda",
-        "source": "similaripy_tpu_torch/csrc/tile_topk.cu",
-        "replaces": TPU_KERNEL_LINE,
-        "tpu": TPU_KERNEL,
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": f32["kernel_ms"],
-        "kernel_ms": f32["kernel_ms"],
-        "plain_ms": f32["plain_ms"],
-        "bound_ms": f32["bound_ms"],
-        "bound_by": f32["bound_by"],
-        "library_ms": f32["library_ms"],
-    }]})
+        "source": source,
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": errs[name],
+        "ms": timed[name]["kernel_ms"],
+        "plain_ms": timed[name]["plain_ms"],
+        "bound_ms": timed[name]["bound_ms"],
+        "bound_by": timed[name]["bound_by"],
+        "library_ms": timed[name]["library_ms"],
+    } for name, (source, replaces) in KERNELS.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

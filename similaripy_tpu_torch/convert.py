@@ -32,18 +32,21 @@ def preprocessed_from_reference(fields: dict) -> Preprocessed:
     m1 = sp.csr_array(fields["m1"])
     m2 = fields["m2"]
     m2 = sp.csc_array(m2) if m2.format == "csc" else sp.csr_array(m2)
+    self_similar = bool(fields.get("self_similar", False))
+    fp1 = _fingerprint(m1.indptr, m1.indices, m1.data)
     out = Preprocessed(
         m1=m1,
         m2=m2,
         targets=np.ascontiguousarray(np.asarray(fields["targets"], dtype=np.int32)),
         k=int(fields["k"]),
-        fp1=_fingerprint(m1.indptr, m1.indices, m1.data),
-        fp2=_fingerprint(m2.indptr, m2.indices, m2.data),
+        fp1=fp1,
+        # a self-similarity's m2 is m1's transpose, keyed as preprocess keys it
+        fp2=fp1 + ":T" if self_similar else _fingerprint(m2.indptr, m2.indices, m2.data),
         n_output_rows=int(fields["n_output_rows"]),
         n_output_cols=int(fields["n_output_cols"]),
         qscale1=fields.get("qscale1"),
         qscale2=fields.get("qscale2"),
-        self_similar=bool(fields.get("self_similar", False)),
+        self_similar=self_similar,
     )
     for name in _VECTORS:
         setattr(out, name, _f32_or_none(fields.get(name)))

@@ -35,11 +35,10 @@
 // the tensor cores (wgmma), loads are neither asynchronous (TMA / cp.async)
 // nor double-buffered, and the scores round-trip through device memory
 // between the two launches instead of staying on chip.
+//
+// The epilogue and the sort keys live in splus_epilogue.cuh, shared with K2.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "splus_epilogue.cuh"
 
 namespace {
 
@@ -50,32 +49,6 @@ constexpr int PAD = 4;        // keeps slab rows 16-byte aligned, spreads banks
 constexpr int THREADS = 256;  // 16 x 16 threads, 8 x 8 outputs each
 constexpr int TOPK_THREADS = 256;
 constexpr int MAX_SMEM = 227 * 1024;
-
-enum Mode { MODE_F32 = 0, MODE_BF16 = 1, MODE_INT8 = 2 };
-
-// epilogue flags, the order of SPlusParams.static_flags()
-enum Flag {
-  F_L1 = 1, F_L2 = 2, F_L3 = 4, F_POW = 8, F_BAYES = 16, F_DENOM = 32
-};
-
-// One K unit in shared memory: a float for f32 and bf16 (bf16 is widened
-// on the way in, exactly), four int8 values packed in an int for int8.
-template <int MODE> struct Unit;
-template <> struct Unit<MODE_F32> {
-  using elem = float; using smem = float; using vec = float4;
-  static constexpr int K = 1;
-};
-template <> struct Unit<MODE_BF16> {
-  using elem = __nv_bfloat16; using smem = float; using vec = float4;
-  static constexpr int K = 1;
-};
-template <> struct Unit<MODE_INT8> {
-  using elem = int8_t; using smem = int; using vec = int4;
-  static constexpr int K = 4;
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // A unit at (row offset, unit u) of the row-major (M x K) panel.
 template <int MODE>
@@ -111,31 +84,6 @@ __device__ __forceinline__ typename Unit<MODE>::smem load_d(
   } else {
     return to_f32(d[(size_t)u * N + c]);
   }
-}
-
-__device__ __forceinline__ float mac(float a, float b, float acc) { return fmaf(a, b, acc); }
-__device__ __forceinline__ int mac(int a, int b, int acc) { return __dp4a(a, b, acc); }
-
-// The S-Plus epilogue of _epilogue_val / splus_epilogue, term by term in
-// the same order, with explicitly rounded operations so that no multiply
-// and add contract into an FMA (the plain PyTorch version rounds each).
-__device__ __forceinline__ float splus_val(float xy, int flags, const float* p,
-                                           float xt, float xc, float xd,
-                                           float yt, float yc, float yd) {
-  if (!(flags & F_DENOM)) return xy;  // raw, un-powered product
-  const float xy_p = (flags & F_POW) ? powf(xy, p[0]) : xy;
-  float denom = p[6];
-  if (flags & F_L1) {
-    const float t = __fadd_rn(__fadd_rn(__fmul_rn(p[4], __fsub_rn(xt, xy)),
-                                        __fmul_rn(p[5], __fsub_rn(yt, xy))),
-                              xy);
-    denom = __fadd_rn(denom, __fmul_rn(p[1], t));
-  }
-  if (flags & F_L2) denom = __fadd_rn(denom, __fmul_rn(p[2], __fmul_rn(xc, yc)));
-  if (flags & F_L3) denom = __fadd_rn(denom, __fmul_rn(p[3], __fmul_rn(xd, yd)));
-  float val = denom != 0.0f ? __fdiv_rn(xy_p, denom) : 0.0f;
-  if (flags & F_BAYES) val = __fmul_rn(val, __fdiv_rn(xy_p, __fadd_rn(xy_p, p[7])));
-  return val;
 }
 
 template <int MODE>
@@ -225,25 +173,6 @@ __global__ void __launch_bounds__(THREADS) product_kernel(
       scores[cell] = (keep && val >= thr) ? val : -INFINITY;
     }
   }
-}
-
-// 64-bit sort key: order-preserving bits of the value above the inverted
-// column, so a descending sort puts larger values first and, among equal
-// values, the lowest column first. -0.0 is folded into +0.0 (they are equal).
-__device__ __forceinline__ unsigned long long make_key(float v, int col) {
-  unsigned u = __float_as_uint(v == 0.0f ? 0.0f : v);
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((unsigned long long)u << 32) | (unsigned long long)(0xFFFFFFFFu - (unsigned)col);
-}
-
-__device__ __forceinline__ float key_val(unsigned long long key) {
-  unsigned u = (unsigned)(key >> 32);
-  u = (u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u;
-  return __uint_as_float(u);
-}
-
-__device__ __forceinline__ int key_col(unsigned long long key) {
-  return (int)(0xFFFFFFFFu - (unsigned)(key & 0xFFFFFFFFull));
 }
 
 // One block per row of the (M x N) score scratch. Dynamic shared memory:

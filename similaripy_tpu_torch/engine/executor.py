@@ -13,10 +13,13 @@ carried across column tiles (reference: s_plus.h:39-64,71-240,265-453):
     (``tile_topk.fused_tile_topk``), whose in-kernel merge carries each
     row's top-k_pad from tile to tile.
 
-Every single-device call of the port takes this branch; the JAX package's
-symmetric and compaction executors, its device-resident cache, its
-exclude-seen fold and its split-bf16x3 sweep are not ported yet. Each of
-those changes speed only, never a result.
+Every single-device call that is not a self-similarity over all rows takes
+this branch; those go to the symmetric executor (``symmetric.py``), as in
+the JAX package. The JAX package's compaction executor, its exclude-seen
+fold and its split-bf16x3 sweep are not ported yet. Each of those changes
+speed only, never a result. Device uploads of both executors live in the
+content-keyed cache at the end of this module (``cache_info``,
+``clear_caches``).
 
 Candidate semantics: an output cell is a candidate iff its product xy != 0
 (the dense-tile proxy for the reference's structural non-zeros,
@@ -39,7 +42,8 @@ from ..ops.csr import csc_quantized
 from ..utils.device import hbm_budget_bytes, resolve_device
 from . import tile_topk
 from .params import PVEC_LEN, SPlusParams, build_pvec
-from .preprocess import Preprocessed
+from .preprocess import Preprocessed, _fingerprint, clear_prep_cache, prep_cache_len
+from .scatter import densify, stack_tiles
 
 NEG_INF = float("-inf")
 
@@ -57,8 +61,10 @@ _SEARCH_SCATTER_NNZ_PER_S = 1e9
 # calls of the k_pad > MAX_KERNEL_K_PAD branch (plain PyTorch per tile)
 wide_k_calls = 0
 
-# the geometry the latest call planned (for diagnostics and measurements)
+# the geometry the latest call planned and the executor it took
+# ("symmetric" or "general"), for diagnostics and measurements
 last_plan: dict = {}
+last_route: Optional[str] = None
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +137,7 @@ def plan_fused_groups(
     m1_bytes: int,
     tile_item: int,
     budget: int,
+    foreign: int,
     n_panels: int,
     search: bool,
     max_tc: int,
@@ -158,7 +165,7 @@ def plan_fused_groups(
             + u_pad * tc_cand * tile_item
             + (1 << 30)
         )
-        g = max(1, int((budget * 0.85 - res) // tile_b))
+        g = max(1, int((budget * 0.85 - res - foreign) // tile_b))
         g = min(g, n_t)
         # pad the tile count so every group has exactly g tiles; shrink g
         # to the minimum for the chosen group count
@@ -211,19 +218,6 @@ def compute_cast(compute_dtype: str):
     return torch.float32
 
 
-def densify(shape, rows, cols, vals, cdt):
-    """Scatter a padded COO into a dense tile of dtype `cdt`.
-
-    Entries whose row lies outside `shape` are the padding sentinels and
-    are dropped; duplicates sum, as SciPy sums them."""
-    n_rows, n_cols = shape[-2], shape[-1]
-    keep = rows < n_rows
-    flat = rows[keep].to(torch.int64) * n_cols + cols[keep].to(torch.int64)
-    out = torch.zeros(math.prod(shape), dtype=cdt, device=rows.device)
-    out.index_put_((flat,), vals[keep].to(cdt), accumulate=True)
-    return out.view(shape)
-
-
 def scatter_mask(shape, rows, cols):
     """A uint8 membership mask (1 at each in-range (row, col))."""
     keep = rows < shape[0]
@@ -231,17 +225,6 @@ def scatter_mask(shape, rows, cols):
     out = torch.zeros(shape[0] * shape[1], dtype=torch.uint8, device=rows.device)
     out.index_put_((flat,), torch.ones_like(flat, dtype=torch.uint8))
     return out.view(shape)
-
-
-def _densify_group(rows, cols, vals, *, u_pad: int, tc: int, cdt):
-    """(G, p2) padded tile COOs -> (G, u_pad, tc) dense tiles."""
-    g = rows.shape[0]
-    tile_ids = torch.arange(g, device=rows.device, dtype=torch.int64)[:, None]
-    # fold the tile id into the row so one scatter fills the whole stack;
-    # a padding sentinel (row == u_pad) stays out of range
-    stacked_rows = torch.where(rows < u_pad, rows + tile_ids * u_pad, g * u_pad)
-    return densify((g * u_pad, tc), stacked_rows.ravel(), cols.ravel(),
-                   vals.ravel(), cdt).view(g, u_pad, tc)
 
 
 # ---------------------------------------------------------------------------
@@ -435,13 +418,14 @@ def execute(
 ):
     """Run the tiled similarity; returns host (T, k) vals f32 and idx int32.
 
-    A device out-of-memory error replans the call once from scratch with a
-    25% smaller budget (executor.py:1245-1306). Only
-    ``torch.cuda.OutOfMemoryError`` triggers it. `_tile_fn="plain"` runs
-    the plain PyTorch K1 even on a card (for comparisons only)."""
+    A device out-of-memory error drops the device cache and replans the
+    call once from scratch with a 25% smaller budget
+    (executor.py:1245-1306). Only ``torch.cuda.OutOfMemoryError`` triggers
+    it. `_tile_fn="plain"` runs the kernels' plain PyTorch versions even
+    on a card (for comparisons only)."""
     device = resolve_device(device)
     if budget_bytes is None:
-        budget_bytes = hbm_budget_bytes(device)
+        budget_bytes = default_budget(device)
     kwargs = dict(
         block_size_hint=block_size_hint, compute_dtype=compute_dtype,
         precision=precision, progress=progress, device=device, tile_fn=_tile_fn,
@@ -457,12 +441,24 @@ def execute(
         )
     # outside the except block, so the failed attempt's frames (and the
     # device buffers they hold) are released before the retry
+    clear_device_cache()
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
     if progress is not None and hasattr(progress, "reset"):
         progress.reset()
     return _execute_impl(pre, params, budget_bytes=retry_budget, **kwargs)
+
+
+def default_budget(device: torch.device) -> int:
+    """The device bytes a call may plan with. On a card the free memory
+    does not count what the cache holds, but the planners budget the
+    call's own cached uploads in their reserves and subtract the other
+    matrices' (``foreign_cache_bytes``), so those bytes are added back."""
+    budget = hbm_budget_bytes(device)
+    if device.type == "cuda":
+        budget += _device_bytes(list(_DEVICE_CACHE.values()))
+    return budget
 
 
 def _execute_impl(
@@ -479,10 +475,12 @@ def _execute_impl(
 ):
     """Plan and run one attempt (see execute). `precision` is a minimum
     guarantee; every float mode here runs true f32 or bf16 products."""
+    global last_route
     if precision not in ("highest", "high", "default"):
         raise ValueError(f"precision must be 'highest', 'high' or 'default', got {precision!r}")
     if tile_fn not in ("kernel", "plain"):
         raise ValueError(f"_tile_fn must be 'kernel' or 'plain', got {tile_fn!r}")
+    last_route = None
     m1, m2, targets, k = pre.m1, pre.m2, pre.targets, pre.k
     T = targets.shape[0]
     U = m1.shape[1]
@@ -493,6 +491,21 @@ def _execute_impl(
             np.full((T, max(k, 1)), NEG_INF, np.float32),
             np.zeros((T, max(k, 1)), np.int32),
         )
+
+    from .symmetric import execute_symmetric, symmetric_eligible
+
+    if symmetric_eligible(pre, params, block_size_hint):
+        # self-similarity: the upper-triangle blocked executor, about half
+        # the products and no separate matrix1 staging (symmetric.py)
+        last_route = "symmetric"
+        return execute_symmetric(
+            pre, params, compute_dtype=compute_dtype, budget_bytes=budget_bytes,
+            progress=progress, device=device, tile_fn=tile_fn,
+        )
+    # The JAX package sends eligible targeted or filtered calls to its
+    # compaction executor here (compact.py:445-453); that executor is not
+    # ported yet, so they take the general branch.
+    last_route = "general"
 
     compute_dtype, inv_scale = resolve_compute_dtype(compute_dtype, pre)
     cdt = compute_cast(compute_dtype)
@@ -526,7 +539,7 @@ def _execute_impl(
         C=C, tc=tc, u_pad=u_pad, trp=trp, k_pad=k_pad,
         m1_nnz=m1.nnz, m2_nnz=m2.nnz, sel_nnz=sel_nnz,
         m1_bytes=m1_bytes, tile_item=dense_item, budget=budget_bytes,
-        n_panels=n_panels,
+        foreign=foreign_cache_bytes((pre.fp1, pre.fp2)), n_panels=n_panels,
         search=compute_dtype in ("bfloat16", "float32") and block_size_hint == 0,
         max_tc=KERNEL_MAX_TC,
     )
@@ -540,59 +553,95 @@ def _execute_impl(
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    # ---- matrix2 tiles: balanced round-robin column layout ----
+    # ---- matrix2 tiles: balanced round-robin column layout, cached ----
     int8_mode = compute_dtype in ("int8", "int4")
-    m2_csc = csc_quantized(m2, pre.qscale2 if int8_mode else None)
-    tile_lists, col_map = balance_columns(np.diff(m2_csc.indptr), n_tiles, tc)
-    t_rows, t_cols, t_vals = (
-        dev(a) for a in _stack_m2_tiles_balanced(m2_csc, tile_lists, tc, u_pad)
+    m2_key = (
+        "m2", pre.fp2, _fingerprint(pre.Yt, pre.Yc, pre.Yd, pre.col_allowed),
+        compute_dtype, tc, n_tiles, u_pad, str(device),
     )
-    tiles_common = {
-        name: dev(_vec_by_map(v, col_map, C).reshape(n_tiles, tc))
-        for name, v in (("y_t", pre.Yt), ("y_c", pre.Yc), ("y_d", pre.Yd))
-    }
-    tiles_common["col_offset"] = dev(
-        (np.arange(n_tiles, dtype=np.float32) * tc).reshape(n_tiles, 1)
-    )
-    if pre.col_allowed is not None:
-        allowed = np.zeros(col_map.shape[0], dtype=np.uint8)
-        used = col_map < C
-        allowed[used] = pre.col_allowed[col_map[used]]
-        tiles_common["allowed"] = dev(allowed.reshape(n_tiles, tc))
+    cached = _cache_get(m2_key)
+    if cached is None:
+        _evict_stale("m2", pre.fp2, m2_key)
+        m2_csc = csc_quantized(m2, pre.qscale2 if int8_mode else None)
+        tile_lists, col_map = balance_columns(np.diff(m2_csc.indptr), n_tiles, tc)
+        m2_coo = tuple(
+            dev(a) for a in _stack_m2_tiles_balanced(m2_csc, tile_lists, tc, u_pad)
+        )
+        tiles_common = {
+            name: dev(_vec_by_map(v, col_map, C).reshape(n_tiles, tc))
+            for name, v in (("y_t", pre.Yt), ("y_c", pre.Yc), ("y_d", pre.Yd))
+        }
+        tiles_common["col_offset"] = dev(
+            (np.arange(n_tiles, dtype=np.float32) * tc).reshape(n_tiles, 1)
+        )
+        if pre.col_allowed is not None:
+            allowed = np.zeros(col_map.shape[0], dtype=np.uint8)
+            used = col_map < C
+            allowed[used] = pre.col_allowed[col_map[used]]
+            tiles_common["allowed"] = dev(allowed.reshape(n_tiles, tc))
+        _cache_put(m2_key, (m2_coo, tiles_common, col_map, tile_lists))
+    else:
+        m2_coo, tiles_common, col_map, tile_lists = cached
+    t_rows, t_cols, t_vals = m2_coo
 
     # ---- matrix1 panels: target rows dealt round-robin by nnz rank ----
-    m1_t = m1[targets]
-    if int8_mode:
-        m1_t.data = np.rint(m1_t.data * pre.qscale1).astype(np.float32)
-    row_nnz = np.diff(m1_t.indptr)
-    order = np.argsort(-row_nnz, kind="stable")
-    panel_sel = [order[p::n_panels] for p in range(n_panels)]
-    panels = []
-    for sel in panel_sel:
-        panel = m1_t[sel]
-        tgt = targets[sel]
-        pr = np.repeat(np.arange(sel.shape[0], dtype=np.int32), np.diff(panel.indptr))
-        vecs = [
-            _pad_vec(v[tgt] if v is not None else None, trp)
-            for v in (pre.Xt, pre.Xc, pre.Xd)
-        ]
-        panels.append(
-            (dev(pr), dev(panel.indices.astype(np.int32)), dev(panel.data), *map(dev, vecs))
-        )
+    m1_key = (
+        "m1", pre.fp1, _fingerprint(targets, pre.Xt, pre.Xc, pre.Xd),
+        compute_dtype, trp, str(device),
+    )
+    cached = _cache_get(m1_key)
+    if cached is None:
+        _evict_stale("m1", pre.fp1, m1_key)
+        m1_t = m1[targets]
+        if int8_mode:
+            m1_t.data = np.rint(m1_t.data * pre.qscale1).astype(np.float32)
+        row_nnz = np.diff(m1_t.indptr)
+        order = np.argsort(-row_nnz, kind="stable")
+        panel_sel = [order[p::n_panels] for p in range(n_panels)]
+        panels = []
+        for sel in panel_sel:
+            panel = m1_t[sel]
+            tgt = targets[sel]
+            pr = np.repeat(np.arange(sel.shape[0], dtype=np.int32), np.diff(panel.indptr))
+            vecs = [
+                _pad_vec(v[tgt] if v is not None else None, trp)
+                for v in (pre.Xt, pre.Xc, pre.Xd)
+            ]
+            panels.append(
+                (dev(pr), dev(panel.indices.astype(np.int32)), dev(panel.data), *map(dev, vecs))
+            )
+        _cache_put(m1_key, (panels, panel_sel))
+    else:
+        panels, panel_sel = cached
 
-    # ---- per-panel selector tiles (host-staged, uploaded per group) ----
+    # ---- per-panel selector tiles (host-resident, uploaded per group) ----
     sel_stacked = {}
-    for name, mat in (("fil", pre.filter_matrix), ("tgt", pre.target_matrix)):
-        if mat is None:
-            continue
-        sel_t = mat[targets]
-        pf = _selector_pf(sel_t, panel_sel, col_map, tc, C, n_tiles)
-        stacks = [
-            _stack_selector_tiles_balanced(sel_t[sel].tocsc(), tile_lists, tc, trp, pf)
-            for sel in panel_sel
-        ]
-        sel_stacked[f"{name}_rows"] = np.stack([s[0] for s in stacks])
-        sel_stacked[f"{name}_cols"] = np.stack([s[1] for s in stacks])
+    if pre.filter_matrix is not None or pre.target_matrix is not None:
+        def mat_fp(mat):
+            return None if mat is None else _fingerprint(mat.data, mat.indices, mat.indptr)
+
+        sel_key = (
+            "sel", pre.fp1, pre.fp2, _fingerprint(targets),
+            mat_fp(pre.filter_matrix), mat_fp(pre.target_matrix),
+            compute_dtype, trp, tc, n_tiles, u_pad,
+        )
+        cached = _cache_get(sel_key)
+        if cached is None:
+            _evict_stale("sel", pre.fp1, sel_key)
+            for name, mat in (("fil", pre.filter_matrix), ("tgt", pre.target_matrix)):
+                if mat is None:
+                    continue
+                sel_t = mat[targets]
+                pf = _selector_pf(sel_t, panel_sel, col_map, tc, C, n_tiles)
+                stacks = [
+                    _stack_selector_tiles_balanced(sel_t[sel].tocsc(), tile_lists, tc, trp, pf)
+                    for sel in panel_sel
+                ]
+                sel_stacked[f"{name}_rows"] = np.stack([s[0] for s in stacks])
+                sel_stacked[f"{name}_cols"] = np.stack([s[1] for s in stacks])
+            _cache_put(sel_key, sel_stacked)
+        else:
+            sel_stacked = cached
 
     pvec = dev(build_pvec(params, inv_scale))
     carries = [
@@ -605,7 +654,7 @@ def _execute_impl(
     for g in range(n_groups):
         t0, t1 = g * g_tiles, (g + 1) * g_tiles
         d_stack = None  # release the previous group before the next lands
-        d_stack = _densify_group(
+        d_stack = stack_tiles(
             t_rows[t0:t1], t_cols[t0:t1], t_vals[t0:t1], u_pad=u_pad, tc=tc, cdt=cdt
         )
         group = {name: arr[t0:t1] for name, arr in tiles_common.items()}
@@ -635,3 +684,148 @@ def _execute_impl(
     # dropped downstream in assembly, so a blanket map is safe.
     out_idx = col_map[out_idx].astype(np.int32)
     return out_vals, out_idx
+
+
+# ---------------------------------------------------------------------------
+# Device-resident input cache (executor.py:760-941)
+# ---------------------------------------------------------------------------
+#
+# Production retrieval calls the engine again and again on the same
+# matrices (every scoring batch reuses the item matrix). Both executors
+# keep their device uploads here under full-content fingerprints, so a
+# repeated call skips the host staging and the upload, and an in-place
+# mutation of an input is always seen. Keys are tuples whose first entry
+# is the kind: "m2" tile stacks, "m1" panel uploads and "sel" host-resident
+# selector stacks of the general executor, "sym_coo" stackings of the
+# symmetric executor.
+
+_DEVICE_CACHE: dict = {}
+# m1 panels + m2 tiles + selector stacks of a scoring call take 3 slots
+# next to a model build's COO entry; 8 keeps a two-model pipeline from
+# thrashing. Device bytes are handled by the planners through
+# foreign_cache_bytes, not by this count.
+_DEVICE_CACHE_CAP = 8
+
+# host-resident entries (the "sel" stacks are NumPy arrays) are bounded by
+# bytes, not count: foreign_cache_bytes ignores host memory, so nothing
+# else prunes them
+_HOST_CACHE_MAX_BYTES = 2048 << 20
+
+_MISS = object()
+
+
+def _cache_get(key):
+    value = _DEVICE_CACHE.pop(key, _MISS)
+    if value is _MISS:
+        return None
+    _DEVICE_CACHE[key] = value  # reinsert at the end: eviction is LRU
+    return value
+
+
+def _leaves(value):
+    stack = [value]
+    while stack:
+        v = stack.pop()
+        if isinstance(v, dict):
+            stack.extend(v.values())
+        elif isinstance(v, (list, tuple)):
+            stack.extend(v)
+        else:
+            yield v
+
+
+def _host_bytes(value) -> int:
+    return sum(v.nbytes for v in _leaves(value) if isinstance(v, np.ndarray))
+
+
+def _device_bytes(value) -> int:
+    """Bytes of the tensors in `value` (on whatever device they live: the
+    tests' CPU tensors count as the device's, as JAX's CPU arrays do)."""
+    return sum(
+        v.numel() * v.element_size() for v in _leaves(value) if isinstance(v, torch.Tensor)
+    )
+
+
+def _cache_put(key, value):
+    if len(_DEVICE_CACHE) >= _DEVICE_CACHE_CAP:
+        _DEVICE_CACHE.pop(next(iter(_DEVICE_CACHE)))
+    _DEVICE_CACHE[key] = value
+    # the host-byte budget over NumPy-holding entries, oldest first, never
+    # the one just inserted
+    host_keys = [k for k, v in _DEVICE_CACHE.items() if _host_bytes(v) > 0]
+    while len(host_keys) > 1 and sum(
+        _host_bytes(_DEVICE_CACHE[k]) for k in host_keys
+    ) > _HOST_CACHE_MAX_BYTES:
+        _DEVICE_CACHE.pop(host_keys.pop(0), None)
+
+
+def _evict_stale(tag: str, fp, keep_key) -> None:
+    """Drop `tag` entries of the same matrix fingerprint under another key
+    (stale geometry or dtype variants): foreign_cache_bytes does not count
+    same-fingerprint entries, so a stale one would hold unbudgeted device
+    memory right when the fresh stack uploads."""
+    stale = [
+        k for k in _DEVICE_CACHE
+        if isinstance(k, tuple) and k and k[0] == tag and fp in k and k != keep_key
+    ]
+    for k in stale:
+        _DEVICE_CACHE.pop(k, None)
+
+
+def clear_device_cache():
+    _DEVICE_CACHE.clear()
+
+
+def foreign_cache_bytes(keep_fps: tuple) -> int:
+    """Device bytes held by cache entries of OTHER matrices.
+
+    A pipeline that builds an item-item model and then scores with it
+    leaves the build's uploads cached while the scoring call plans; the
+    planners leave room for them. Entries whose key holds one of
+    `keep_fps` (this call's input fingerprints) are the call's own and are
+    not counted. A same-fingerprint entry of another geometry is not
+    counted either: every cache miss evicts it (_evict_stale) before its
+    fresh upload lands."""
+    total = 0
+    for key, value in _DEVICE_CACHE.items():
+        if any(fp in key for fp in keep_fps if fp is not None):
+            continue
+        total += _device_bytes(value)
+    return total
+
+
+def clear_caches():
+    """Drop every engine cache: the device uploads and the host preprocess
+    cache. Safe at any time; the next call re-stages. Both caches key on
+    full-content fingerprints, so this is never needed for correctness,
+    only to release memory."""
+    _DEVICE_CACHE.clear()
+    clear_prep_cache()
+
+
+def cache_info() -> dict:
+    """Resident footprint of the engine caches, for memory monitoring
+    (pairs with :func:`clear_caches`).
+
+    Returns ``{"entries", "device_bytes", "host_bytes", "by_kind": {kind:
+    {"entries", "device_bytes", "host_bytes"}}, "prep_entries"}`` where
+    ``kind`` is the key's tag ("m2", "m1", "sel", "sym_coo") and
+    ``prep_entries`` counts the host preprocess cache."""
+    device_bytes = host_bytes = 0
+    by_kind: dict = {}
+    for key, value in _DEVICE_CACHE.items():
+        kind = key[0] if isinstance(key, tuple) and key else "?"
+        d, h = _device_bytes(value), _host_bytes(value)
+        device_bytes += d
+        host_bytes += h
+        e = by_kind.setdefault(kind, {"entries": 0, "device_bytes": 0, "host_bytes": 0})
+        e["entries"] += 1
+        e["device_bytes"] += d
+        e["host_bytes"] += h
+    return {
+        "entries": len(_DEVICE_CACHE),
+        "device_bytes": device_bytes,
+        "host_bytes": host_bytes,
+        "by_kind": by_kind,
+        "prep_entries": prep_cache_len(),
+    }

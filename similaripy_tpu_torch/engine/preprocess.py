@@ -193,9 +193,8 @@ class Preprocessed:
     # not integerizable) — enables the exact int8 path (executor.py)
     qscale1: Optional[float] = None
     qscale2: Optional[float] = None
-    # the call came from matrix2=None, i.e. m2 is exactly m1.T (the JAX
-    # package's symmetric executor keys on it; this port has no such
-    # executor yet and carries the flag for it)
+    # the call came from matrix2=None, i.e. m2 is exactly m1.T: the
+    # symmetric executor keys on it (symmetric.symmetric_eligible)
     self_similar: bool = False
 
 

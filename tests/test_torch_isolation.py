@@ -74,8 +74,13 @@ def test_kernel_builds_with_plain_nvcc():
     PyTorch extension headers, no torch.utils.cpp_extension."""
     from similaripy_tpu_torch.engine import build
 
-    cu = (PORT / "csrc" / "tile_topk.cu").read_text()
-    assert "torch/extension.h" not in cu and 'extern "C"' in cu
+    sources = sorted((PORT / "csrc").glob("*.cu"))
+    assert [p.name for p in sources] == ["scatter.cu", "sym_topk.cu", "tile_topk.cu"]
+    assert build.sources() == sources
+    for path in sources + sorted((PORT / "csrc").glob("*.cuh")):
+        assert "torch/extension.h" not in path.read_text(), path
+    for path in sources:
+        assert 'extern "C"' in path.read_text(), path
     for path in PORT.rglob("*.py"):
         assert "cpp_extension" not in path.read_text(), path
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)

@@ -1,4 +1,5 @@
-"""K1's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+K1 (tile_topk), K2 (sym_topk) and K5 (scatter).
 
 These tests need a CUDA card, nvcc and the kernel build; without a card
 they skip. They import no JAX, so they also run on a machine without it:
@@ -6,11 +7,21 @@ they skip. They import no JAX, so they also run on a machine without it:
 (`--noconftest` because the suite's conftest imports JAX).
 """
 
+import numpy as np
 import pytest
 import torch
 
-from similaripy_tpu_torch.engine import tile_topk
+from similaripy_tpu_torch.engine import scatter, sym_topk, tile_topk
 from torch_k1_cases import CASES, assert_same, make_case, run_port
+from torch_k2_cases import CARD_CASES as K2_CARD_CASES
+from torch_k2_cases import CASES as K2_CASES
+from torch_k2_cases import EPILOGUES, case_id, make_inputs, torch_fn
+from torch_k2_cases import assert_same as assert_same_k2
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
 
 
 def _plain_on_card(mode, a, d, vecs, pv, masks, carry, flags, k_pad):
@@ -21,11 +32,57 @@ def _plain_on_card(mode, a, d, vecs, pv, masks, carry, flags, k_pad):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,carry_on,mask", CASES)
 def test_kernel_matches_plain(mode, carry_on, mask):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    _need_card()
     case = make_case(mode, carry_on, mask, _plain_on_card)
     tile_topk.reset_counts()
     got = run_port(tile_topk.fused_tile_topk, mode, *case, device="cuda")
     assert tile_topk.kernel_launches == 1
     ref = _plain_on_card(mode, *case)
     assert_same(mode, got, ref, case[6])
+
+
+K2_ALL = K2_CASES + K2_CARD_CASES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K2_ALL, ids=[case_id(c) for c in K2_ALL])
+def test_sym_kernel_matches_plain(case):
+    _need_card()
+    plain = torch_fn(sym_topk.fused_sym_topk_plain, case["mode"], device="cuda")
+    args, kw = make_inputs(case, plain)
+    sym_topk.reset_counts()
+    got = torch_fn(sym_topk.fused_sym_topk, case["mode"], device="cuda")(*args, **kw)
+    torch.cuda.synchronize()
+    assert sym_topk.kernel_launches == 1 and sym_topk.plain_calls == 0
+    assert_same_k2(case["mode"], got, plain(*args, **kw), EPILOGUES[case["epi"]][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("dup", [False, True])
+def test_scatter_kernel_matches_plain(mode, dup):
+    """Sentinel padding lands nowhere; unique entries land bit-exactly; an
+    entry repeated once sums exactly (two addends, any order)."""
+    _need_card()
+    rng = np.random.default_rng(7 + dup)
+    g, u_pad, tc, p2 = 3, 2048, 1024, 40_000
+    ru = np.full((g, p2), u_pad, np.int32)
+    sl = np.zeros((g, p2), np.int32)
+    vv = np.zeros((g, p2), np.float32)
+    for t in range(g):
+        n = p2 - 1000 * (t + 1)
+        cells = rng.choice(u_pad * tc, n, replace=False)
+        if dup:
+            cells[n // 2:] = cells[: n - n // 2]
+        ru[t, :n], sl[t, :n] = cells // tc, cells % tc
+        vv[t, :n] = (rng.integers(-6, 7, n) if mode == "int8"
+                     else torch.from_numpy(rng.random(n).astype(np.float32)).bfloat16().float())
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[mode]
+    args = [torch.from_numpy(a).cuda() for a in (ru, sl, vv)]
+    scatter.reset_counts()
+    got = scatter.densify_tiles(*args, u_pad=u_pad, tc=tc, cdt=dt)
+    torch.cuda.synchronize()
+    assert scatter.kernel_launches == 1 and scatter.plain_calls == 0
+    ref = scatter.densify_tiles_plain(*args, u_pad=u_pad, tc=tc, cdt=dt)
+    assert got.dtype == dt and got.shape == (g, u_pad, tc)
+    assert torch.equal(got, ref)
