@@ -8,18 +8,23 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
 ``similaripy_tpu``. Each phase prints one JSON line with its `seconds`:
 
   0 device   the card, and `nvidia-smi --query-gpu=name,power.limit`
-  1 build    nvcc builds csrc/*.cu (K1 tile_topk, K2 sym_topk, K5 scatter),
-             one process per source, into similaripy_tpu_torch/_build/
+  1 build    nvcc builds csrc/*.cu (K1 tile_topk, K2 sym_topk, K3 panel_topk,
+             K4 gather, K5 scatter), one process per source, into
+             similaripy_tpu_torch/_build/
   2 parity   each kernel against its plain PyTorch version on the card.
              K1: small ragged shapes in every mode (f32, bf16, int8) x carry
              x mask, with epilogue flag sets. K2: every mode, symmetric and
              asymmetric epilogues, blocks with dead, diagonal and live anchor
              rows, cold and warm carries, k > tc, and the main path's widths
              (sw = 2,048, and sw = 18,432 whose col side takes more than one
-             shared-memory chunk) (tests/torch_k2_cases.py). K5: every mode
-             with sentinel padding. int8 bit-equal (through pow: 2 ulp),
-             f32/bf16 values within rtol 1e-5, ids equal where values are not
-             tied; K5 tiles bit-equal
+             shared-memory chunk) (tests/torch_k2_cases.py). K3: every mode
+             with and without the hot bias under each mask, k_pad > tc, K of
+             several KB blocks, tc up to 4,096 (tests/torch_k3_cases.py). K4:
+             every dtype, repeated and unsorted ids and the last row, rows not
+             16-byte aligned. K5: every mode with sentinel padding. int8
+             bit-equal (through pow: 2 ulp), f32/bf16 values within rtol 1e-5,
+             ids equal where values are not tied; K4 rows and K5 tiles
+             bit-equal
   3 main     the main path at ML-32M width on the tracked .bench_data_1.0.npz
              (200,948 users x 84,432 items), driven through the public calls
              with the launch counts set to 0 just before and read just after:
@@ -29,7 +34,8 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
              int8 cosine on the raw ratings over all items and for the 1,024
              items; asymmetric_cosine(alpha=0.3) over the 16,384 most popular
              items. Each call took its route, launched its kernels and no
-             plain version. Then the checks: recommend and the 1,024-item
+             plain version (these calls hold the compaction route off). Then
+             the checks: recommend and the 1,024-item
              cosines match the same calls through the plain versions (nnz,
              check_sum rtol 1e-4; int8 identical); 64 sampled rows match a
              float64 SciPy oracle (rtol 1e-4); the symmetric results' rows
@@ -37,13 +43,22 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
              rtol 1e-5 for f32, equal values for int8); the asymmetric call
              matches the general route on all its rows, and so does the same
              call planned with anchor groups of three tiles; recommend never
-             returns a seen item
+             returns a seen item. Then three calls on the compaction route
+             (K3, K4, K5) and on the general route (K1), each run on, off,
+             on, off: cosine(k=100) for 8,192 items, f32 and exact int8, and
+             dot_product(bm25(urm), W.T, k=10) for the 1,024 users with the
+             8,192 items excluded; both routes give the same rows (nnz,
+             check_sum rtol 1e-5; int8 equal values), K3 and K4 launch as
+             often as the plan needs, 64 rows of the f32 call match the
+             float64 oracle; both routes' walls and the plans are printed
   4 times    at the main path's shapes: K2 on a live off-diagonal block and a
              diagonal block, K5 on one inner tile, K1 on a 1,024-item cosine
-             panel (f32 and int8) and a recommend panel: kernel, bound, plain
-             and library
+             panel (f32 and int8) and a recommend panel, K3 on a panel of the
+             largest cold bucket of the 8,192-item cosine (f32 and int8) and
+             K4 on its gather: kernel, bound, plain and library
              (K2: torch.matmul + epilogue + torch.topk on both sides; K5:
-             index_put_; K1: torch.matmul or torch._int_mm + torch.topk);
+             index_put_; K1: torch.matmul or torch._int_mm + torch.topk; K3:
+             the same with the bias and the epilogue; K4: index_select);
              K2's three launches and a warm repeat of the asymmetric call
              under torch.profiler (device time by kernel, idle share)
 
@@ -75,7 +90,12 @@ KERNELS = {
                  "similaripy_tpu/engine/pallas_kernels.py:1145"),
     "scatter": ("similaripy_tpu_torch/csrc/scatter.cu",
                 "similaripy_tpu/engine/pallas_kernels.py:1301"),
+    "panel_topk": ("similaripy_tpu_torch/csrc/panel_topk.cu",
+                   "similaripy_tpu/engine/pallas_kernels.py:559"),
+    "gather": ("similaripy_tpu_torch/csrc/gather.cu",
+               "similaripy_tpu/engine/gather.py:96"),
 }
+N_COMPACT_TARGETS = 8192
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
@@ -247,6 +267,43 @@ def parity_k5(torch, sc, dev):
     return {"cases": cases, "max_abs_err": 0.0}
 
 
+def parity_k3(torch, pt, dev):
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_k3_cases import CARD_CASES, CASES, assert_same_panel, make_case, run_port
+
+    max_err = {"f32": 0.0, "bf16": 0.0, "int8": 0.0}
+    cases = [c + (None,) for c in CASES] + CARD_CASES
+    for mode, bias_on, mask, card_shape in cases:
+        inputs = make_case(mode, bias_on, mask, card_shape)
+        got = run_port(pt.fused_panel_topk, mode, *inputs, device=dev.type)
+        ref = run_port(pt.fused_panel_topk_plain, mode, *inputs, device=dev.type)
+        try:
+            assert_same_panel(mode, got, ref, inputs[6])
+        except AssertionError as e:
+            raise AssertionError(f"parity K3 {mode} bias={bias_on} mask={mask} "
+                                 f"shape={card_shape}: {e}") from None
+        fin = np.isfinite(ref[0])
+        if fin.any():
+            max_err[mode] = max(max_err[mode], float(np.max(np.abs(got[0][fin] - ref[0][fin]))))
+    return {"cases": len(cases), "max_abs_err": max_err}
+
+
+def parity_k4(torch, ga, dev):
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_k3_cases import GATHER_CASES, gather_inputs
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+    for mode, u_pad, cg, n in GATHER_CASES:
+        table, idx = gather_inputs(mode, u_pad, cg, n)
+        t = torch.from_numpy(table).to(dev).to(dtypes[mode])
+        i = torch.from_numpy(idx).to(dev)
+        got, ref = ga.row_gather(t, i), ga.row_gather_plain(t, i)
+        _sync(torch, dev)
+        if got.dtype != t.dtype or not torch.equal(got, ref):
+            raise AssertionError(f"parity K4 {mode} {(u_pad, cg, n)}: rows differ from the plain version")
+    return {"cases": len(GATHER_CASES), "max_abs_err": 0.0}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path at ML-32M width
 # ---------------------------------------------------------------------------
@@ -317,9 +374,94 @@ def _same(name, got, ref, exact):
                                    err_msg=f"{name}: check_sum vs plain")
 
 
+def _make_call(torch, counters, ex, dev, calls):
+    """The main path's call driver: counts set to 0 just before a call and
+    read just after; the route taken, its kernels launched (K3 and K4 as
+    often as the compaction plan needs) and no plain version run; the
+    result's wall, launches, nnz, check_sum and plan go into `calls`."""
+
+    def call(key, name, fn, route):
+        for c in counters.values():
+            c.reset_counts()
+        t = time.perf_counter()
+        out = fn()
+        _sync(torch, dev)
+        wall = time.perf_counter() - t
+        launches = {k: c.kernel_launches for k, c in counters.items()}
+        plain = {k: c.plain_calls for k, c in counters.items()}
+        if ex.last_route != route:
+            raise AssertionError(f"{name}: took the {ex.last_route} route, not {route}")
+        used = {"symmetric": ("sym_topk", "scatter"), "general": ("tile_topk",),
+                "compact": ("panel_topk", "scatter")}[route]
+        if any(launches[k] == 0 for k in used) or any(plain.values()):
+            raise AssertionError(f"{name}: launches {launches}, plain calls {plain}")
+        if route == "compact":
+            # K3 once per panel and group, K4 once per gathering panel and group
+            buckets, n_groups = ex.last_plan["buckets"], ex.last_plan["n_groups"]
+            expect = {"panel_topk": n_groups * sum(n for _, n in buckets),
+                      "gather": n_groups * sum(n for b, n in buckets if b)}
+            if any(launches[k] != v for k, v in expect.items()):
+                raise AssertionError(f"{name}: launches {launches}, expected {expect}")
+        calls[key] = {"call": name, "route": route, "seconds": wall, "launches": launches,
+                      "nnz": int(out.nnz), "check_sum": check_sum(out),
+                      "plan": dict(ex.last_plan)}
+        return out
+    return call
+
+
+def _compaction_calls(sim, compact, call, calls, common, urm, urm_n, W, users, item_t, t8k):
+    """Slice 3's calls: the compaction route (K3, K4, K5) against the
+    general route (K1), each call run on, off, on, off: a partial rebuild
+    of the model for 8,192 new or changed items, f32 and exact int8, and
+    scoring with a catalog-level exclusion list (K3's allowed mask). Both
+    routes give the same rows; 64 rows of the f32 rebuild match the
+    float64 oracle. Returns both routes' walls, the plan and the launches
+    of each call."""
+    compaction = {}
+    for key, name, fn, rows, exact in (
+        ("cosine_t8k", "cosine(bm25(urm).T, k=100), 8,192 items",
+         lambda: sim.cosine(urm_n.T, k=100, target_rows=t8k, **common), t8k, False),
+        ("cosine_int8_t8k", "cosine(urm.T, k=100) int8, 8,192 items",
+         lambda: sim.cosine(urm.T, k=100, target_rows=t8k, **common), t8k, True),
+        ("score_excluding_t8k",
+         "dot_product(bm25(urm), W.T, k=10), 1,024 users, 8,192 items excluded",
+         lambda: sim.dot_product(urm_n, W.T, k=10, target_rows=users, filter_cols=t8k,
+                                 **common), users, False),
+    ):
+        out = {}
+        for i, mode in enumerate(("on", "off", "on", "off")):
+            compact.MODE = mode
+            route = "compact" if mode == "on" else "general"
+            out[mode] = call(f"{key}_{mode}_{i // 2}", f"{name} [{route}]", fn, route)
+        compact.MODE = "off"
+        on, off = calls[f"{key}_on_1"], calls[f"{key}_off_1"]
+        for c in (on, off):
+            if exact and c["plan"]["compute_dtype"] != "int8":
+                raise AssertionError(f"{c['call']} ran {c['plan']['compute_dtype']}, not int8")
+        _same_rows(f"{name}: compaction", out["on"], out["off"], rows, exact=exact)
+        if key == "score_excluding_t8k":
+            hit = set(out["on"].tocsr().indices.tolist()) & set(t8k.tolist())
+            if hit:
+                raise AssertionError(f"{name}: returned {len(hit)} excluded items")
+        walls = {m: [calls[f"{key}_{m}_{j}"]["seconds"] for j in (0, 1)] for m in ("on", "off")}
+        compaction[key] = {
+            "compact_s": walls["on"], "general_s": walls["off"],
+            "faster": min(walls["on"]) < min(walls["off"]),
+            "plan": {k: on["plan"][k] for k in ("H", "buckets", "tc", "cg", "n_groups",
+                                                 "u_pad", "compute_dtype")},
+            "launches": on["launches"],
+        }
+        if key == "cosine_t8k":
+            sample = np.sort(np.random.default_rng(1).choice(t8k, N_ORACLE_ROWS, replace=False))
+            _check_oracle("cosine, 8,192 items [compact]", out["on"], sample,
+                          _oracle_rows(item_t, urm_n, sample, 100, l2=True))
+    compact.MODE = "auto"
+    return compaction
+
+
 def phase_main(torch, sim, counters, ex, urm, dev):
     """The main path on `urm` (users x items, f32 half-star ratings)."""
-    from similaripy_tpu_torch.engine import symmetric
+    from similaripy_tpu_torch.engine import compact, symmetric
     from similaripy_tpu_torch.engine.assembly import assemble
     from similaripy_tpu_torch.engine.params import SPlusParams
     from similaripy_tpu_torch.engine.preprocess import preprocess
@@ -333,25 +475,11 @@ def phase_main(torch, sim, counters, ex, urm, dev):
     common = dict(verbose=False, format_output="csr", device=dev)
 
     calls = {}
+    # slices 1 and 2 hold these calls to the general route (K1): the
+    # compaction route is off for them; slice 3's calls below set it
+    compact.MODE = "off"
 
-    def call(key, name, fn, route):
-        for c in counters.values():
-            c.reset_counts()
-        t = time.perf_counter()
-        out = fn()
-        _sync(torch, dev)
-        wall = time.perf_counter() - t
-        launches = {k: c.kernel_launches for k, c in counters.items()}
-        plain = {k: c.plain_calls for k, c in counters.items()}
-        if ex.last_route != route:
-            raise AssertionError(f"{name}: took the {ex.last_route} route, not {route}")
-        used = ("sym_topk", "scatter") if route == "symmetric" else ("tile_topk",)
-        if any(launches[k] == 0 for k in used) or any(plain.values()):
-            raise AssertionError(f"{name}: launches {launches}, plain calls {plain}")
-        calls[key] = {"call": name, "route": route, "seconds": wall, "launches": launches,
-                      "nnz": int(out.nnz), "check_sum": check_sum(out),
-                      "plan": dict(ex.last_plan)}
-        return out
+    call = _make_call(torch, counters, ex, dev, calls)
 
     def plain_route(m1, m2, params, k, targets, filt=None, **prep):
         """The same call through the engine with the plain versions."""
@@ -433,6 +561,12 @@ def phase_main(torch, sim, counters, ex, urm, dev):
     _same_rows("asymmetric_cosine gt=3", grouped, A, np.arange(N_POPULAR), exact=False)
     checks["grouped_plan_s"] = time.perf_counter() - t
 
+    t = time.perf_counter()
+    t8k = np.sort(np.random.default_rng(0).choice(C, N_COMPACT_TARGETS, replace=False))
+    compaction = _compaction_calls(sim, compact, call, calls, common, urm, urm_n, W, users,
+                                   item_t, t8k)
+    checks["compaction_s"] = time.perf_counter() - t
+
     seen = urm_n[users].tocsr()
     recs_u = recs.tocsr()[users]
     for r in range(users.shape[0]):
@@ -441,8 +575,9 @@ def phase_main(torch, sim, counters, ex, urm, dev):
         if s.intersection(g):
             raise AssertionError(f"recommend: user {users[r]} got a seen item")
     state = {"urm_n": urm_n, "W": W, "users": users, "items": items, "pop_t": pop_t,
-             "plans": {k: c["plan"] for k, c in calls.items()}}
-    return {"bm25_seconds": bm25_s, "calls": list(calls.values()), "checks": checks}, state
+             "t8k": t8k, "plans": {k: c["plan"] for k, c in calls.items()}}
+    return {"bm25_seconds": bm25_s, "calls": list(calls.values()), "checks": checks,
+            "compaction": compaction}, state
 
 
 # ---------------------------------------------------------------------------
@@ -660,6 +795,102 @@ def _time_k5(torch, sc, coo, plan, int8):
     }
 
 
+def _compact_panel(torch, dev, m_items, targets, plan, int8, params, **prep):
+    """Panel 0 of the largest cold bucket of a compaction call against the
+    call's first column group, staged by the executor's own staging
+    (compact.stage_panels, compact.stage_tiles) at the call's plan: the
+    panel's hot and cold lhs, the dense group table, the gather ids and
+    the vectors."""
+    from similaripy_tpu_torch.engine import compact, scatter
+    from similaripy_tpu_torch.engine import executor as ex
+    from similaripy_tpu_torch.engine.params import build_pvec
+    from similaripy_tpu_torch.engine.preprocess import preprocess
+
+    pre = preprocess(m_items, m_items.T, k=100, target_rows=targets, self_similar=True, **prep)
+    cd, inv_scale = ex.resolve_compute_dtype("int8" if int8 else "float32", pre)
+    H, tc, u_pad, cg = plan["H"], plan["tc"], plan["u_pad"], plan["cg"]
+    buckets, rank_of = compact.stage_panels(pre, cd, u_pad=u_pad, device=dev,
+                                            densify=scatter.densify_tiles)
+    b = max(buckets, key=lambda b: b["B"])
+    (rows, cols, vals, yvecs), _ = compact.stage_tiles(pre, cd, rank_of, tc=tc,
+                                                       n_tiles=plan["n_tiles"], u_pad=u_pad,
+                                                       device=dev)
+    G = cg // tc
+    d_group = compact._build_d_group(rows[:G], cols[:G], vals[:G], u_pad=u_pad, tc=tc,
+                                     cdt=ex.compute_cast(cd), densify=scatter.densify_tiles)
+    pv = np.zeros(16, np.float32)
+    pv[:10] = build_pvec(params, inv_scale)
+    return {
+        "B": b["B"], "H": H, "tc": tc, "cg": cg, "k_pad": plan["k_pad"], "int8": int8,
+        "a_hot": b["hot"][0], "a_cold": b["cold"][0], "d_group": d_group, "gi": b["gi"][0],
+        "x": [b[n][0] for n in ("sx_t", "sx_c", "sx_d")],
+        "y": [yvecs[n][:cg] for n in ("y_t", "y_c", "y_d")],
+        "pvec": torch.from_numpy(pv).to(dev), "flags": params.static_flags(),
+    }
+
+
+def _time_k3_k4(torch, pt, ga, op):
+    """K3 on the staged panel (its cold rows gathered, its hot bias by the
+    library product), and K4 on that panel's gather: kernel, bound, plain
+    and library."""
+    from similaripy_tpu_torch.engine import compact
+    from similaripy_tpu_torch.engine.tile_topk import splus_epilogue
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_k3_cases import assert_same_panel
+
+    tm, K, cg, tc, k_pad, int8 = compact.TM, op["B"], op["cg"], op["tc"], op["k_pad"], op["int8"]
+    mode = "int8" if int8 else "f32"
+    d_group, gi = op["d_group"], op["gi"]
+    d_cold = ga.row_gather(d_group, gi)
+    if not torch.equal(d_cold, ga.row_gather_plain(d_group, gi)):
+        raise AssertionError("times K4: rows differ from the plain version")
+    bias = compact._hot_bias(op["a_hot"], d_group[: op["H"]], int8)
+    args = (op["a_cold"], d_cold, *op["x"], *op["y"], op["pvec"])
+    kw = dict(bias=bias, flags=op["flags"], k_pad=k_pad, tc=tc, int8_mode=int8)
+    got = [t.cpu().numpy() for t in pt.fused_panel_topk(*args, **kw)]
+    ref = [t.cpu().numpy() for t in pt.fused_panel_topk_plain(*args, **kw)]
+    assert_same_panel(mode, got, ref, op["flags"])
+    fin = np.isfinite(ref[0])
+    err = float(np.max(np.abs(got[0][fin] - ref[0][fin]))) if fin.any() else 0.0
+
+    k3_ms = _time_ms(torch, lambda: pt.fused_panel_topk(*args, **kw), 5)
+    k3_plain_ms = _time_ms(torch, lambda: pt.fused_panel_topk_plain(*args, **kw), 3)
+    pvl = op["pvec"].tolist()
+
+    def library():
+        if int8:
+            xy = (torch._int_mm(op["a_cold"], d_cold) + bias).float() * pvl[9]
+        else:
+            xy = torch.matmul(op["a_cold"], d_cold) + bias
+        val = splus_epilogue(xy, xy != 0, *op["x"], *op["y"], pvl, op["flags"])
+        return torch.topk(val.view(tm, cg // tc, tc), k_pad, dim=2)
+
+    k3_lib_ms = _time_ms(torch, library, 5)
+    item = d_cold.element_size()
+    ops = 2.0 * tm * K * cg
+    nbytes = (item * (tm * K + K * cg) + 4.0 * tm * cg + 4.0 * (3 * tm + 3 * cg + 16)
+              + 8.0 * (cg // tc) * k_pad * tm)
+    k3_bound, k3_by = _bound(ops, nbytes, int8)
+    k4_ms = _time_ms(torch, lambda: ga.row_gather(d_group, gi), 5)
+    k4_plain_ms = _time_ms(torch, lambda: ga.row_gather_plain(d_group, gi), 3)
+    k4_lib_ms = _time_ms(torch, lambda: torch.index_select(d_group, 0, gi), 5)
+    # each distinct row read once (the bucket's padding repeats row 0), each
+    # gathered row written once
+    k4_bytes = (int(torch.unique(gi).numel()) + K) * cg * float(item)
+    k4_bound, k4_by = _bound(0.0, k4_bytes, int8)
+    shape = {"TM": tm, "K": K, "H": op["H"], "cg": cg, "tc": tc, "k_pad": k_pad,
+             "u_pad": int(d_group.shape[0]), "dtype": "int8" if int8 else "float32"}
+    return (
+        {"shape": shape, "kernel_ms": k3_ms, "plain_ms": k3_plain_ms, "library_ms": k3_lib_ms,
+         "bound_ms": k3_bound, "bound_by": k3_by, "kernel_tops": ops / k3_ms / 1e9,
+         "max_abs_err": err},
+        {"shape": shape, "kernel_ms": k4_ms, "plain_ms": k4_plain_ms, "library_ms": k4_lib_ms,
+         "bound_ms": k4_bound, "bound_by": k4_by, "kernel_gbps": k4_bytes / k4_ms / 1e6,
+         "max_abs_err": 0.0},
+    )
+
+
 def phase_times(torch, sim, tt, st, sc, urm, state):
     from similaripy_tpu_torch.engine.params import SPlusParams
 
@@ -689,6 +920,20 @@ def phase_times(torch, sim, tt, st, sc, urm, state):
                               plans["cosine_int8_targeted"], True)
     out["K1_f32_recommend"] = _time_k1(torch, tt, urm_n.tocsr()[state["users"]],
                                        state["W"].T.tocsc(), plans["recommend"], False)
+    # K3 and K4 on the 8,192-item cosine's largest cold bucket, f32 and int8
+    # (the same panel: plan_compact reads only the sparsity structure);
+    # the engine caches are dropped first to make room for a full group
+    from similaripy_tpu_torch.engine import gather as ga
+    from similaripy_tpu_torch.engine import panel_topk as pt
+
+    sim.clear_caches()
+    for name, m_items, key, int8 in (("f32", urm_n.T.tocsr(), "cosine_t8k_on_1", False),
+                                     ("int8", urm.T.tocsr(), "cosine_int8_t8k_on_1", True)):
+        op = _compact_panel(torch, torch.device("cuda"), m_items, state["t8k"], plans[key], int8,
+                            cos, **cos_prep)
+        out[f"K3_{name}"], out[f"K4_{name}"] = _time_k3_k4(torch, pt, ga, op)
+        del op
+        torch.cuda.empty_cache()
     return out
 
 
@@ -702,6 +947,8 @@ def main() -> int:
     import similaripy_tpu_torch as sim
     from similaripy_tpu_torch.engine import build
     from similaripy_tpu_torch.engine import executor as ex
+    from similaripy_tpu_torch.engine import gather as ga
+    from similaripy_tpu_torch.engine import panel_topk as pt
     from similaripy_tpu_torch.engine import scatter as sc
     from similaripy_tpu_torch.engine import sym_topk as st
     from similaripy_tpu_torch.engine import tile_topk as tt
@@ -730,7 +977,8 @@ def main() -> int:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     parity = {"K1": parity_k1(torch, tt, dev), "K2": parity_k2(torch, st, dev),
-              "K5": parity_k5(torch, sc, dev)}
+              "K5": parity_k5(torch, sc, dev), "K3": parity_k3(torch, pt, dev),
+              "K4": parity_k4(torch, ga, dev)}
     emit({"phase": "parity", **parity, "seconds": time.perf_counter() - t0})
 
     import scipy.sparse as sp
@@ -741,7 +989,7 @@ def main() -> int:
         raise AssertionError(f"{DATA} has shape {urm.shape}, expected {ML32M_SHAPE}")
     load_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    counters = {"tile_topk": tt, "sym_topk": st, "scatter": sc}
+    counters = {"tile_topk": tt, "sym_topk": st, "scatter": sc, "panel_topk": pt, "gather": ga}
     main_path, state = phase_main(torch, sim, counters, ex, urm, dev)
     emit({"phase": "main", "load_seconds": load_s, **main_path,
           "seconds": time.perf_counter() - t0})
@@ -751,8 +999,11 @@ def main() -> int:
     emit({"phase": "times", **times, "seconds": time.perf_counter() - t0})
 
     launches = {k: sum(c["launches"][k] for c in main_path["calls"]) for k in KERNELS}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the main path never launched: {launches}")
     timed = {"tile_topk": times["K1_f32"], "sym_topk": times["K2_f32_live"],
-             "scatter": times["K5_f32"]}
+             "scatter": times["K5_f32"], "panel_topk": times["K3_f32"],
+             "gather": times["K4_f32"]}
     errs = {
         "tile_topk": max(times["K1_f32"]["max_abs_err"], times["K1_int8"]["max_abs_err"],
                          times["K1_f32_recommend"]["max_abs_err"],
@@ -761,6 +1012,9 @@ def main() -> int:
                         times["K2_f32_diagonal"]["max_abs_err"],
                         *parity["K2"]["max_abs_err"].values()),
         "scatter": 0.0,
+        "panel_topk": max(times["K3_f32"]["max_abs_err"], times["K3_int8"]["max_abs_err"],
+                          *parity["K3"]["max_abs_err"].values()),
+        "gather": 0.0,
     }
     emit({"kernels": [{
         "name": name,

@@ -21,291 +21,17 @@
 // cores for f32, 989 TFLOP/s of bf16 and 1,979 TOP/s of int8 on the tensor
 // cores. The D tile streams from device memory at 3.35 TB/s.
 //
-// The first design is simple and correct, and gives speed away:
-//   1. product_kernel: a shared-memory-tiled SIMT product. Each block owns a
-//      128 x 128 output block, stages K slabs of 16 units through shared
-//      memory and keeps an 8 x 8 register micro-tile per thread (int8 packs
-//      four K values per unit and multiplies them with __dp4a). The epilogue
-//      and masks are fused; the score (or -inf) goes to a (trp x tc) f32
+// The first design is simple and correct, and gives speed away. Both
+// launches live in tile_kernels.cuh, shared with K3 (panel_topk.cu):
+//   1. product_kernel: a shared-memory-tiled SIMT product with the epilogue
+//      and masks fused; the score (or -inf) goes to a (trp x tc) f32
 //      scratch that the wrapper allocates.
 //   2. topk_kernel: one block per row. It keeps the scores above the carry's
-//      kth, sorts them in shared memory (bitonic, on 64-bit keys that order
-//      by value and then by lowest column) and merges them with the carry.
-// Given away, for later work: bf16 and int8 run on the SIMT cores instead of
-// the tensor cores (wgmma), loads are neither asynchronous (TMA / cp.async)
-// nor double-buffered, and the scores round-trip through device memory
-// between the two launches instead of staying on chip.
+//      kth, sorts them in shared memory and merges them with the carry.
 //
 // The epilogue and the sort keys live in splus_epilogue.cuh, shared with K2.
 
-#include "splus_epilogue.cuh"
-
-namespace {
-
-constexpr int BM = 128;       // output rows per block
-constexpr int BN = 128;       // output columns per block
-constexpr int BKU = 16;       // K units per shared-memory slab
-constexpr int PAD = 4;        // keeps slab rows 16-byte aligned, spreads banks
-constexpr int THREADS = 256;  // 16 x 16 threads, 8 x 8 outputs each
-constexpr int TOPK_THREADS = 256;
-constexpr int MAX_SMEM = 227 * 1024;
-
-// A unit at (row offset, unit u) of the row-major (M x K) panel.
-template <int MODE>
-__device__ __forceinline__ typename Unit<MODE>::smem load_a(
-    const typename Unit<MODE>::elem* __restrict__ a, size_t row_off, int u, int K) {
-  if constexpr (MODE == MODE_INT8) {
-    int w = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = 4 * u + j;
-      const int b = k < K ? (int)(uint8_t)a[row_off + k] : 0;
-      w |= b << (8 * j);
-    }
-    return w;
-  } else {
-    return to_f32(a[row_off + u]);
-  }
-}
-
-// A unit at (unit u, column c) of the row-major (K x N) tile.
-template <int MODE>
-__device__ __forceinline__ typename Unit<MODE>::smem load_d(
-    const typename Unit<MODE>::elem* __restrict__ d, int u, int c, int K, int N) {
-  if constexpr (MODE == MODE_INT8) {
-    int w = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = 4 * u + j;
-      const int b = k < K ? (int)(uint8_t)d[(size_t)k * N + c] : 0;
-      w |= b << (8 * j);
-    }
-    return w;
-  } else {
-    return to_f32(d[(size_t)u * N + c]);
-  }
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(THREADS) product_kernel(
-    const typename Unit<MODE>::elem* __restrict__ a,
-    const typename Unit<MODE>::elem* __restrict__ d, int M, int K, int N,
-    const float* __restrict__ xt, const float* __restrict__ xc,
-    const float* __restrict__ xd, const float* __restrict__ yt,
-    const float* __restrict__ yc, const float* __restrict__ yd,
-    const float* __restrict__ pvec, const uint8_t* __restrict__ allowed,
-    const uint8_t* __restrict__ fmask, const uint8_t* __restrict__ tmask,
-    int flags, float* __restrict__ scores) {
-  using U = Unit<MODE>;
-  using S = typename U::smem;
-  using V = typename U::vec;
-  using Acc = S;
-  __shared__ __align__(16) S as[BKU][BM + PAD];
-  __shared__ __align__(16) S ds[BKU][BN + PAD];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int ku = (K + U::K - 1) / U::K;  // K in units
-
-  Acc acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0;
-
-  for (int u0 = 0; u0 < ku; u0 += BKU) {
-#pragma unroll
-    for (int i = 0; i < BM * BKU / THREADS; ++i) {
-      const int e = tid + i * THREADS;
-      const int r = e / BKU, u = e % BKU;
-      const int gr = m0 + r, gu = u0 + u;
-      as[u][r] = (gr < M && gu < ku) ? load_a<MODE>(a, (size_t)gr * K, gu, K) : S(0);
-    }
-#pragma unroll
-    for (int i = 0; i < BN * BKU / THREADS; ++i) {
-      const int e = tid + i * THREADS;
-      const int u = e / BN, c = e % BN;
-      const int gc = n0 + c, gu = u0 + u;
-      ds[u][c] = (gc < N && gu < ku) ? load_d<MODE>(d, gu, gc, K, N) : S(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < BKU; ++u) {
-      // rows ty*4 + {0..3} and 64 + ty*4 + {0..3}; the same split for columns
-      const V a0 = *reinterpret_cast<const V*>(&as[u][ty * 4]);
-      const V a1 = *reinterpret_cast<const V*>(&as[u][64 + ty * 4]);
-      const V b0 = *reinterpret_cast<const V*>(&ds[u][tx * 4]);
-      const V b1 = *reinterpret_cast<const V*>(&ds[u][64 + tx * 4]);
-      const S av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const S bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = mac(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  const float thr = pvec[8];
-  const float inv_scale = pvec[9];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (r >= M) continue;
-    const float xtr = xt[r], xcr = xc[r], xdr = xd[r];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (c >= N) continue;
-      float xy;
-      if constexpr (MODE == MODE_INT8) {
-        xy = __fmul_rn(__int2float_rn(acc[i][j]), inv_scale);
-      } else {
-        xy = acc[i][j];
-      }
-      const size_t cell = (size_t)r * N + c;
-      bool keep = xy != 0.0f;
-      if (allowed) keep = keep && allowed[c] != 0;
-      if (fmask) keep = keep && fmask[cell] == 0;
-      if (tmask) keep = keep && tmask[cell] != 0;
-      const float val = splus_val(xy, flags, pvec, xtr, xcr, xdr, yt[c], yc[c], yd[c]);
-      scores[cell] = (keep && val >= thr) ? val : -INFINITY;
-    }
-  }
-}
-
-// One block per row of the (M x N) score scratch. Dynamic shared memory:
-// `cap` sort keys (cap = the power of two >= N), then, with a carry, the
-// row's carried k_pad values and ids.
-template <bool CARRY>
-__global__ void __launch_bounds__(TOPK_THREADS) topk_kernel(
-    const float* __restrict__ scores, int M, int N, int k_pad, int cap,
-    const float* __restrict__ pvec, const float* __restrict__ cv,
-    const int* __restrict__ ci, float* __restrict__ ov, int* __restrict__ oi) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem);
-  __shared__ int n_surv;
-
-  const int row = blockIdx.x, tid = threadIdx.x;
-  const int col_base = (int)pvec[10];
-  const float kth = CARRY ? cv[(size_t)(k_pad - 1) * M + row] : -INFINITY;
-  if (tid == 0) n_surv = 0;
-  __syncthreads();
-
-  // survivors: finite scores above the carry's kth (pallas_kernels.py:338)
-  const float* srow = scores + (size_t)row * N;
-  for (int c = tid; c < N; c += TOPK_THREADS) {
-    const float v = srow[c];
-    if (v > kth) keys[atomicAdd(&n_surv, 1)] = make_key(v, c);
-  }
-  __syncthreads();
-  const int n = n_surv;
-  int p2 = 1;
-  while (p2 < n) p2 <<= 1;
-  for (int i = n + tid; i < p2; i += TOPK_THREADS) keys[i] = 0ull;  // sorts last
-  __syncthreads();
-
-  // bitonic sort, descending, over the p2 keys
-  for (int k = 2; k <= p2; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < p2; i += TOPK_THREADS) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const unsigned long long x = keys[i], y = keys[ixj];
-          const bool desc = (i & k) == 0;
-          if (desc ? (x < y) : (x > y)) {
-            keys[i] = y;
-            keys[ixj] = x;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  const int m = n < k_pad ? n : k_pad;  // the tile's top entries
-  if constexpr (!CARRY) {
-    for (int i = tid; i < k_pad; i += TOPK_THREADS) {
-      const bool hit = i < m;
-      ov[(size_t)i * M + row] = hit ? key_val(keys[i]) : -INFINITY;
-      oi[(size_t)i * M + row] = col_base + (hit ? key_col(keys[i]) : 0);
-    }
-  } else {
-    float* bv = reinterpret_cast<float*>(keys + cap);
-    int* bi = reinterpret_cast<int*>(bv + k_pad);
-    for (int j = tid; j < k_pad; j += TOPK_THREADS) {
-      bv[j] = cv[(size_t)j * M + row];
-      bi[j] = ci[(size_t)j * M + row];
-    }
-    __syncthreads();
-    // stable merge of two descending lists, ties to the tile: a tile entry
-    // lands after the carry entries strictly above it, a carry entry after
-    // the tile entries at or above it
-    for (int i = tid; i < m; i += TOPK_THREADS) {
-      const float v = key_val(keys[i]);
-      int lo = 0, hi = k_pad;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (bv[mid] > v) lo = mid + 1; else hi = mid;
-      }
-      const int pos = i + lo;
-      if (pos < k_pad) {
-        ov[(size_t)pos * M + row] = v;
-        oi[(size_t)pos * M + row] = col_base + key_col(keys[i]);
-      }
-    }
-    for (int j = tid; j < k_pad; j += TOPK_THREADS) {
-      const float v = bv[j];
-      int lo = 0, hi = m;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (key_val(keys[mid]) >= v) lo = mid + 1; else hi = mid;
-      }
-      const int pos = j + lo;
-      if (pos < k_pad) {
-        ov[(size_t)pos * M + row] = v;
-        oi[(size_t)pos * M + row] = bi[j];
-      }
-    }
-  }
-}
-
-template <int MODE>
-cudaError_t launch_product(const void* a, const void* d, int M, int K, int N,
-                           const void* xt, const void* xc, const void* xd,
-                           const void* yt, const void* yc, const void* yd,
-                           const void* pvec, const void* allowed,
-                           const void* fmask, const void* tmask, int flags,
-                           void* scores, cudaStream_t stream) {
-  using E = typename Unit<MODE>::elem;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  product_kernel<MODE><<<grid, THREADS, 0, stream>>>(
-      static_cast<const E*>(a), static_cast<const E*>(d), M, K, N,
-      static_cast<const float*>(xt), static_cast<const float*>(xc),
-      static_cast<const float*>(xd), static_cast<const float*>(yt),
-      static_cast<const float*>(yc), static_cast<const float*>(yd),
-      static_cast<const float*>(pvec), static_cast<const uint8_t*>(allowed),
-      static_cast<const uint8_t*>(fmask), static_cast<const uint8_t*>(tmask),
-      flags, static_cast<float*>(scores));
-  return cudaGetLastError();
-}
-
-template <bool CARRY>
-cudaError_t launch_topk(const void* scores, int M, int N, int k_pad, int cap,
-                        size_t smem, const void* pvec, const void* cv,
-                        const void* ci, void* ov, void* oi, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_kernel<CARRY>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  topk_kernel<CARRY><<<M, TOPK_THREADS, smem, stream>>>(
-      static_cast<const float*>(scores), M, N, k_pad, cap,
-      static_cast<const float*>(pvec), static_cast<const float*>(cv),
-      static_cast<const int*>(ci), static_cast<float*>(ov), static_cast<int*>(oi));
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "tile_kernels.cuh"
 
 extern "C" {
 
@@ -316,35 +42,17 @@ int tile_product(int mode, const void* a, const void* d, int M, int K, int N,
                  const void* yc, const void* yd, const void* pvec,
                  const void* allowed, const void* fmask, const void* tmask,
                  int flags, void* scores, void* stream) {
-  if (M <= 0 || N <= 0 || K < 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case MODE_F32:
-      return (int)launch_product<MODE_F32>(a, d, M, K, N, xt, xc, xd, yt, yc, yd,
-                                           pvec, allowed, fmask, tmask, flags, scores, s);
-    case MODE_BF16:
-      return (int)launch_product<MODE_BF16>(a, d, M, K, N, xt, xc, xd, yt, yc, yd,
-                                            pvec, allowed, fmask, tmask, flags, scores, s);
-    case MODE_INT8:
-      return (int)launch_product<MODE_INT8>(a, d, M, K, N, xt, xc, xd, yt, yc, yd,
-                                            pvec, allowed, fmask, tmask, flags, scores, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)product_any<false>(mode, a, d, nullptr, M, K, N, xt, xc, xd, yt, yc, yd, pvec,
+                          allowed, fmask, tmask, flags, scores,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // Launch 2: the per-row top-k_pad of the scores, merged with the carry
 // (cv, ci: k_pad x M) when cv is not null. Outputs ov, oi: k_pad x M.
 int tile_topk_rows(const void* scores, int M, int N, int k_pad, const void* pvec,
                    const void* cv, const void* ci, void* ov, void* oi, void* stream) {
-  if (M <= 0 || N <= 0 || k_pad <= 0) return (int)cudaErrorInvalidValue;
-  int cap = 1;
-  while (cap < N) cap <<= 1;
-  const size_t smem = (size_t)cap * 8 + (cv ? (size_t)k_pad * 8 : 0);
-  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cv) return (int)launch_topk<true>(scores, M, N, k_pad, cap, smem, pvec, cv, ci, ov, oi, s);
-  return (int)launch_topk<false>(scores, M, N, k_pad, cap, smem, pvec, cv, ci, ov, oi, s);
+  return (int)topk_any(scores, M, N, N, 1, k_pad, pvec, cv, ci, ov, oi,
+                       static_cast<cudaStream_t>(stream));
 }
 
 const char* tile_error_string(int err) {

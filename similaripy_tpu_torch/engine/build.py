@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` (K1 ``tile_topk.cu``, K2 ``sym_topk.cu``, K5
-``scatter.cu``, with the shared ``csrc/*.cuh`` headers) is compiled by
+Every ``csrc/*.cu`` (K1 ``tile_topk.cu``, K2 ``sym_topk.cu``, K3
+``panel_topk.cu``, K4 ``gather.cu``, K5 ``scatter.cu``, with the shared
+``csrc/*.cuh`` headers) is compiled by
 ``nvcc`` into one shared library with a plain C interface, loaded with
 ``ctypes``. No PyTorch header takes part, so a build takes seconds, not
 minutes; the sources compile in parallel, one ``nvcc`` each, and are then
@@ -103,6 +104,12 @@ def load() -> ctypes.CDLL:
         lib.sym_merge.restype = i
         lib.densify_tiles.argtypes = [i, p, p, p, i, i, i, i, p, p]
         lib.densify_tiles.restype = i
+        lib.panel_product.argtypes = [i, p, p, p, i, i, i, p, p, p, p, p, p, p, p, p, p, i, p, p]
+        lib.panel_product.restype = i
+        lib.panel_topk_rows.argtypes = [p, i, i, i, i, p, p, p, p]
+        lib.panel_topk_rows.restype = i
+        lib.gather_rows.argtypes = [p, ctypes.c_longlong, ctypes.c_longlong, p, i, p, p]
+        lib.gather_rows.restype = i
         lib.tile_error_string.argtypes = [i]
         lib.tile_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -14,12 +14,12 @@ carried across column tiles (reference: s_plus.h:39-64,71-240,265-453):
     row's top-k_pad from tile to tile.
 
 Every single-device call that is not a self-similarity over all rows takes
-this branch; those go to the symmetric executor (``symmetric.py``), as in
-the JAX package. The JAX package's compaction executor, its exclude-seen
-fold and its split-bf16x3 sweep are not ported yet. Each of those changes
-speed only, never a result. Device uploads of both executors live in the
-content-keyed cache at the end of this module (``cache_info``,
-``clear_caches``).
+this branch, unless it goes to the symmetric executor (``symmetric.py``) or
+to the union-compaction executor (``compact.py``), as in the JAX package.
+The JAX package's exclude-seen fold and its split-bf16x3 sweep are not
+ported yet. Each of those changes speed only, never a result. Device
+uploads of all three executors live in the content-keyed cache at the end
+of this module (``cache_info``, ``clear_caches``).
 
 Candidate semantics: an output cell is a candidate iff its product xy != 0
 (the dense-tile proxy for the reference's structural non-zeros,
@@ -42,7 +42,9 @@ from ..ops.csr import csc_quantized
 from ..utils.device import hbm_budget_bytes, resolve_device
 from . import tile_topk
 from .params import PVEC_LEN, SPlusParams, build_pvec
-from .preprocess import Preprocessed, _fingerprint, clear_prep_cache, prep_cache_len
+from .preprocess import (
+    Preprocessed, _fingerprint, clear_prep_cache, int8_values, prep_cache_len,
+)
 from .scatter import densify, stack_tiles
 
 NEG_INF = float("-inf")
@@ -62,7 +64,7 @@ _SEARCH_SCATTER_NNZ_PER_S = 1e9
 wide_k_calls = 0
 
 # the geometry the latest call planned and the executor it took
-# ("symmetric" or "general"), for diagnostics and measurements
+# ("symmetric", "compact" or "general"), for diagnostics and measurements
 last_plan: dict = {}
 last_route: Optional[str] = None
 
@@ -356,8 +358,9 @@ def resolve_compute_dtype(requested: str, pre: Preprocessed) -> tuple[str, float
     if s1 is None or s2 is None:
         return "float32", 1.0
     m1, m2 = pre.m1, pre.m2
-    maxv1 = float(np.abs(m1.data).max()) * s1 if m1.nnz else 0.0
-    maxv2 = float(np.abs(m2.data).max()) * s2 if m2.nnz else 0.0
+    # judged on the densified values: repeated entries sum (int8_values)
+    maxv1 = float(np.abs(int8_values(m1)).max()) * s1 if m1.nnz else 0.0
+    maxv2 = float(np.abs(int8_values(m2)).max()) * s2 if m2.nnz else 0.0
     max_row_nnz1 = int(np.diff(m1.indptr).max()) if m1.nnz else 0
     if m2.nnz == 0:
         max_col_nnz2 = 0
@@ -502,9 +505,16 @@ def _execute_impl(
             pre, params, compute_dtype=compute_dtype, budget_bytes=budget_bytes,
             progress=progress, device=device, tile_fn=tile_fn,
         )
-    # The JAX package sends eligible targeted or filtered calls to its
-    # compaction executor here (compact.py:445-453); that executor is not
-    # ported yet, so they take the general branch.
+    from .compact import compact_eligible, execute_compact
+
+    if compact_eligible(pre, k, device):
+        # a union-compacted inner dimension per panel: the hot prefix
+        # through a library product, the cold rows gathered (compact.py)
+        last_route = "compact"
+        return execute_compact(
+            pre, params, compute_dtype=compute_dtype, budget_bytes=budget_bytes,
+            progress=progress, device=device, tile_fn=tile_fn,
+        )
     last_route = "general"
 
     compute_dtype, inv_scale = resolve_compute_dtype(compute_dtype, pre)
@@ -697,7 +707,8 @@ def _execute_impl(
 # mutation of an input is always seen. Keys are tuples whose first entry
 # is the kind: "m2" tile stacks, "m1" panel uploads and "sel" host-resident
 # selector stacks of the general executor, "sym_coo" stackings of the
-# symmetric executor.
+# symmetric executor, "compact_m1" panel stacks and "compact_m2" tile COOs
+# of the compaction executor.
 
 _DEVICE_CACHE: dict = {}
 # m1 panels + m2 tiles + selector stacks of a scoring call take 3 slots
@@ -809,7 +820,8 @@ def cache_info() -> dict:
 
     Returns ``{"entries", "device_bytes", "host_bytes", "by_kind": {kind:
     {"entries", "device_bytes", "host_bytes"}}, "prep_entries"}`` where
-    ``kind`` is the key's tag ("m2", "m1", "sel", "sym_coo") and
+    ``kind`` is the key's tag ("m2", "m1", "sel", "sym_coo", "compact_m1",
+    "compact_m2") and
     ``prep_entries`` counts the host preprocess cache."""
     device_bytes = host_bytes = 0
     by_kind: dict = {}

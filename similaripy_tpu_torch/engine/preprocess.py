@@ -324,8 +324,8 @@ def preprocess(
             Xd = _depop_vector(weight_depop_matrix1, p1, m1, axis=1)
             Yd = _depop_vector(weight_depop_matrix2, p2, m2, axis=0)
 
-        qs1 = quantize_scale(m1.data)
-        qs2 = quantize_scale(m2.data)
+        qs1 = quantize_scale(int8_values(m1))
+        qs2 = quantize_scale(int8_values(m2))
         if len(_PREP_CACHE) >= _PREP_CACHE_CAP:
             _PREP_CACHE.pop(next(iter(_PREP_CACHE)))
         _PREP_CACHE[cache_key] = (m1, m2, (Xt, Yt, Xc, Yc, Xd, Yd), (qs1, qs2))
@@ -366,6 +366,21 @@ def preprocess(
         out.target_matrix = target_sel.matrix
 
     return out
+
+
+def int8_values(m) -> np.ndarray:
+    """The values an int8 densify of `m` holds: its entries and, when `m`
+    repeats a (row, col), the sums of the repeats too.
+
+    The coerced CSR keeps a non-canonical input's repeated entries, and
+    every densify adds them (engine/scatter.py), so the int8 gate has to
+    judge the sums or a repeat could wrap past 127. A canonical matrix
+    returns its data without a copy."""
+    if m.has_canonical_format:
+        return m.data
+    summed = m.copy()
+    summed.sum_duplicates()
+    return np.concatenate([m.data, summed.data])
 
 
 def quantize_scale(data: np.ndarray) -> Optional[float]:

@@ -25,6 +25,8 @@ arbitrary, as in the reference; the executor drops those slots.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from .params import PVEC_COL_BASE, PVEC_LEN
@@ -80,29 +82,43 @@ def splus_epilogue(xy, candidate, x_t, x_c, x_d, y_t, y_c, y_d, pvec, flags):
     return torch.where(keep, val, torch.full_like(val, NEG_INF))
 
 
-def _product_plain(a, d, int8_mode: bool):
-    """a @ d as f32: float64 for int8 (exact), f32 otherwise; TF32 is kept
-    off on the card so "f32" means true f32."""
+def _product_plain(a, d, int8_mode: bool, bias=None):
+    """bias + a @ d as f32: float64 for int8 (exact, the int32 bias
+    included), f32 otherwise; TF32 is kept off on the card so "f32" means
+    true f32."""
     if int8_mode:
         a64 = a.to(torch.float64)
-        cols = [
-            (a64 @ d[:, c0:c0 + _PLAIN_INT8_COLS].to(torch.float64)).to(torch.float32)
-            for c0 in range(0, d.shape[1], _PLAIN_INT8_COLS)
-        ]
+        cols = []
+        for c0 in range(0, d.shape[1], _PLAIN_INT8_COLS):
+            c1 = c0 + _PLAIN_INT8_COLS
+            xy = a64 @ d[:, c0:c1].to(torch.float64)
+            if bias is not None:
+                xy = xy + bias[:, c0:c1].to(torch.float64)
+            cols.append(xy.to(torch.float32))
         return torch.cat(cols, dim=1)
+    with full_f32_matmul():
+        xy = a.to(torch.float32) @ d.to(torch.float32)
+    return xy if bias is None else bias + xy
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """f32 products inside run as true f32 whatever the caller set: TF32
+    off for the duration."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return a.to(torch.float32) @ d.to(torch.float32)
+        yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def tile_scores_plain(m1_dense, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext,
-                      allowed, fmask, tmask, *, flags, int8_mode):
-    """The (trp, tc) masked epilogue scores, -inf where dropped."""
+                      allowed, fmask, tmask, *, flags, int8_mode, bias=None):
+    """The (trp, tc) masked epilogue scores of bias + m1_dense @ d, -inf
+    where dropped."""
     pv = pvec_ext.tolist()
-    xy = _product_plain(m1_dense, d, int8_mode)
+    xy = _product_plain(m1_dense, d, int8_mode, bias)
     if int8_mode:
         xy = xy * pv[9]  # inv_scale
     candidate = xy != 0.0

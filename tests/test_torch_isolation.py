@@ -75,7 +75,9 @@ def test_kernel_builds_with_plain_nvcc():
     from similaripy_tpu_torch.engine import build
 
     sources = sorted((PORT / "csrc").glob("*.cu"))
-    assert [p.name for p in sources] == ["scatter.cu", "sym_topk.cu", "tile_topk.cu"]
+    assert [p.name for p in sources] == [
+        "gather.cu", "panel_topk.cu", "scatter.cu", "sym_topk.cu", "tile_topk.cu",
+    ]
     assert build.sources() == sources
     for path in sources + sorted((PORT / "csrc").glob("*.cuh")):
         assert "torch/extension.h" not in path.read_text(), path

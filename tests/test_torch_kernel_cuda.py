@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-K1 (tile_topk), K2 (sym_topk) and K5 (scatter).
+K1 (tile_topk), K2 (sym_topk), K3 (panel_topk), K4 (gather) and K5
+(scatter).
 
 These tests need a CUDA card, nvcc and the kernel build; without a card
 they skip. They import no JAX, so they also run on a machine without it:
@@ -11,12 +12,18 @@ import numpy as np
 import pytest
 import torch
 
-from similaripy_tpu_torch.engine import scatter, sym_topk, tile_topk
+from similaripy_tpu_torch.engine import gather, panel_topk, scatter, sym_topk, tile_topk
 from torch_k1_cases import CASES, assert_same, make_case, run_port
 from torch_k2_cases import CARD_CASES as K2_CARD_CASES
 from torch_k2_cases import CASES as K2_CASES
 from torch_k2_cases import EPILOGUES, case_id, make_inputs, torch_fn
 from torch_k2_cases import assert_same as assert_same_k2
+from torch_k3_cases import CARD_CASES as K3_CARD_CASES
+from torch_k3_cases import CASES as K3_CASES
+from torch_k3_cases import GATHER_CASES, assert_same_panel, gather_inputs
+from torch_k3_cases import case_id as k3_id
+from torch_k3_cases import make_case as make_k3
+from torch_k3_cases import run_port as run_k3
 
 
 def _need_card():
@@ -86,3 +93,34 @@ def test_scatter_kernel_matches_plain(mode, dup):
     ref = scatter.densify_tiles_plain(*args, u_pad=u_pad, tc=tc, cdt=dt)
     assert got.dtype == dt and got.shape == (g, u_pad, tc)
     assert torch.equal(got, ref)
+
+
+K3_ALL = [c + (None,) for c in K3_CASES] + K3_CARD_CASES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K3_ALL, ids=[k3_id(c) for c in K3_ALL])
+def test_panel_kernel_matches_plain(case):
+    _need_card()
+    mode, bias_on, mask, card_shape = case
+    inputs = make_k3(mode, bias_on, mask, card_shape)
+    panel_topk.reset_counts()
+    got = run_k3(panel_topk.fused_panel_topk, mode, *inputs, device="cuda")
+    torch.cuda.synchronize()
+    assert panel_topk.kernel_launches == 1 and panel_topk.plain_calls == 0
+    ref = run_k3(panel_topk.fused_panel_topk_plain, mode, *inputs, device="cuda")
+    assert_same_panel(mode, got, ref, inputs[6])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,u_pad,cg,n", GATHER_CASES)
+def test_gather_kernel_matches_plain(mode, u_pad, cg, n):
+    _need_card()
+    table, idx = gather_inputs(mode, u_pad, cg, n)
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[mode]
+    t, i = torch.from_numpy(table).cuda().to(dt), torch.from_numpy(idx).cuda()
+    gather.reset_counts()
+    got = gather.row_gather(t, i)
+    torch.cuda.synchronize()
+    assert gather.kernel_launches == 1 and gather.plain_calls == 0
+    assert got.dtype == dt and torch.equal(got, gather.row_gather_plain(t, i))
