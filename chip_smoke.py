@@ -9,7 +9,8 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
 
   0 device   the card, and `nvidia-smi --query-gpu=name,power.limit`
   1 build    nvcc builds csrc/*.cu (K1 tile_topk, K2 sym_topk, K3 panel_topk,
-             K4 gather, K5 scatter), one process per source, into
+             K4 gather, K5 scatter, P1 probe_tlhs, P2 probe_int_mma), one
+             process per source, into
              similaripy_tpu_torch/_build/
   2 parity   each kernel against its plain PyTorch version on the card.
              K1: small ragged shapes in every mode (f32, bf16, int8) x carry
@@ -61,6 +62,24 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
              the same with the bias and the epilogue; K4: index_select);
              K2's three launches and a warm repeat of the asymmetric call
              under torch.profiler (device time by kernel, idle share)
+  5 probes   the hardware-probe entry points, with the counts set to 0 just
+             before and read just after: kernel_check's transposed-lhs probe
+             (P1) in int8, bf16 and f32, and micro_int4's rate probe (P2) in
+             int8 and s4 (exact against the oracle x steps, best-of-3 time,
+             TOP/s). Then P1 against its plain version, bit-equal on
+             integer data, in every dtype at the probe's shape, on ragged
+             shapes, and at K2's full-width block (K = u_pad 200,960, M = N
+             = 2,048; 4,096 for int8), with kernel, plain, library
+             (torch.matmul(a.t(), b) with TF32 off; torch._int_mm with the
+             transpose copies and without) and bound times; P1 f32 on
+             standard-normal data at the probe's shape, a ragged one and
+             K2's block, its mean scaled error within the f32 tolerance
+             that a TF32 product exceeds; P2 against its plain version on
+             small shapes, s4 also on values in [-8, 9] that its cast
+             wraps, and as a function (one product times steps: bound of
+             one product, library torch._int_mm * steps) beside its rate;
+             the --quick kernel-check sweep (must pass); K1's
+             microbenchmark (micro_tile_kernel, chained and fresh carry)
 
 then the `kernels` line and, last, {"ok": true, "device": {...}}. Any failed
 check raises and the script exits non-zero; without a card it exits non-zero
@@ -94,10 +113,20 @@ KERNELS = {
                    "similaripy_tpu/engine/pallas_kernels.py:559"),
     "gather": ("similaripy_tpu_torch/csrc/gather.cu",
                "similaripy_tpu/engine/gather.py:96"),
+    "probe_tlhs": ("similaripy_tpu_torch/csrc/probe_tlhs.cu",
+                   "benchmarks/tpu_kernel_check.py:102"),
+    "probe_int_mma": ("similaripy_tpu_torch/csrc/probe_int_mma.cu",
+                      "benchmarks/micro_int4.py:67"),
 }
+# the kernels driven by the probes phase, not by the main path
+PROBE_KERNELS = ("probe_tlhs", "probe_int_mma")
+# P1 at K2's full-width block: (K, M, N); int8 blocks are 4,096 wide
+P1_FULL = {"float32": (200_960, 2048, 2048), "bfloat16": (200_960, 2048, 2048),
+           "int8": (200_960, 4096, 4096)}
 N_COMPACT_TARGETS = 8192
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 POW_RTOL = 2.0**-22  # int8 values through pow: two ulp (tests/torch_k1_cases.py)
@@ -937,6 +966,218 @@ def phase_times(torch, sim, tt, st, sc, urm, state):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the hardware probes (P1, P2), the kernel-check sweep, K1's micro
+# ---------------------------------------------------------------------------
+
+
+def _probe_path(torch, pr, kc, mi4, dev):
+    """The probe entry points as a user runs them, the counts set to 0 just
+    before and read just after: kernel_check's P1 probe in each dtype and
+    micro_int4's P2 probe in each mode."""
+    pr.reset_counts()
+    p1 = {dt: kc.probe_transposed_lhs(dt, dev) for dt in kc.PROBE_DTYPES}
+    p2 = {mode: mi4.probe(mode, mi4.STEPS, mi4.REPS, dev) for mode in ("int8", "s4")}
+    torch.cuda.synchronize()
+    launches = {"probe_tlhs": pr.tlhs_counts.kernel_launches,
+                "probe_int_mma": pr.int_mma_counts.kernel_launches}
+    plain = pr.tlhs_counts.plain_calls + pr.int_mma_counts.plain_calls
+    if plain or not all(launches.values()):
+        raise AssertionError(f"probe path: launches {launches}, plain calls {plain}")
+    bad = [dt for dt, (_, ok) in p1.items() if not ok]
+    bad += [mode for mode, r in p2.items() if not r["exact"]]
+    if bad:
+        raise AssertionError(f"probe path: wrong results in {bad}")
+    return {"p1": {dt: status for dt, (status, _) in p1.items()}, "p2": p2,
+            "launches": launches}
+
+
+def _probe_cases():
+    tests = os.path.join(HERE, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_probe_cases
+
+    return torch_probe_cases
+
+
+def _f32_randn_check(torch, pr, where, a, b):
+    """P1 f32 on standard-normal data: the mean scaled error against the
+    float64 product within the f32 tolerance, and a TF32-rounded product's
+    outside it (tests/torch_probe_cases.py); the largest difference from
+    the plain version is reported."""
+    cases = _probe_cases()
+    got = pr.transposed_lhs_product(a, b)
+    mean, worst, tf32_mean = cases.f32_scaled_errors(torch, got, a, b)
+    tol = cases.f32_tolerance(a.shape[0])
+    if not mean <= tol < tf32_mean:
+        raise AssertionError(f"{where}: mean scaled error {mean} (TF32 would give {tf32_mean}), "
+                             f"tolerance {tol}")
+    max_abs = float((got - pr.transposed_lhs_product_plain(a, b)).abs().max())
+    return {"mean_scaled_err": mean, "max_scaled_err": worst, "tf32_mean_scaled_err": tf32_mean,
+            "tol": tol, "max_abs_err": max_abs}
+
+
+def _parity_probes(torch, pr, dev):
+    """P1 and P2 against their plain versions on the shared small cases:
+    bit-equal on integer data; P1 f32 also on standard-normal data, within
+    the f32 tolerance; P2 s4 also on values its cast wraps."""
+    c = _probe_cases()
+
+    dts = {"int8": torch.int8, "bfloat16": torch.bfloat16, "float32": torch.float32}
+    cases = 0
+    for shape in c.P1_SHAPES:
+        a_i, b_i = c.p1_inputs(*shape, seed=sum(shape))
+        for name, dt in dts.items():
+            a, b = (torch.from_numpy(x).to(dev).to(dt) for x in (a_i, b_i))
+            if not torch.equal(pr.transposed_lhs_product(a, b),
+                               pr.transposed_lhs_product_plain(a, b)):
+                raise AssertionError(f"parity P1 {name} {shape}: differs from the plain version")
+            cases += 1
+    randn = {}
+    for shape in c.P1_F32_RANDN_SHAPES:
+        a, b = (torch.from_numpy(x).to(dev) for x in c.p1_randn(*shape, seed=sum(shape)))
+        randn[c.shape_id(shape)] = _f32_randn_check(torch, pr, f"parity P1 f32 randn {shape}",
+                                                    a, b)
+        cases += 1
+    for M, K, N, steps in c.P2_CASES:
+        a, b = (torch.from_numpy(x).to(dev) for x in c.p2_inputs(M, K, N, seed=M + K))
+        for mode in ("int8", "s4"):
+            if not torch.equal(pr.int_rate_product(a, b, steps, mode),
+                               pr.int_rate_product_plain(a, b, steps, mode)):
+                raise AssertionError(f"parity P2 {mode} {(M, K, N, steps)}: differs")
+            cases += 1
+    for M, K, N, steps in c.P2_WRAP_CASES:
+        a, b = (torch.from_numpy(x).to(dev) for x in c.p2_wrap_inputs(M, K, N, seed=M))
+        if not torch.equal(pr.int_rate_product(a, b, steps, "s4"),
+                           pr.int_rate_product_plain(a, b, steps, "s4")):
+            raise AssertionError(f"parity P2 s4 on [-8, 9] {(M, K, N, steps)}: differs")
+        cases += 1
+    _sync(torch, dev)
+    return {"cases": cases, "f32_randn": randn,
+            "max_abs_err": max(r["max_abs_err"] for r in randn.values())}
+
+
+def _time_p1(torch, pr, dtype):
+    """P1 at K2's full-width block, values in [-5, 5] (exact in every mode):
+    kernel, plain, library and bound; for int8 also the library on K-major
+    operands and the transpose copies; for f32 also standard-normal data
+    against the f32 tolerance."""
+    dev = torch.device("cuda")
+    K, M, N = P1_FULL[dtype]
+    tdt = {"int8": torch.int8, "bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {"shape": {"K": K, "M": M, "N": N, "dtype": dtype}, "max_abs_err": 0.0}
+    if dtype == "float32":
+        a = torch.randn((K, M), generator=gen, device=dev)
+        b = torch.randn((K, N), generator=gen, device=dev)
+        out["f32_randn"] = _f32_randn_check(torch, pr, "times P1 f32 randn", a, b)
+        out["max_abs_err"] = out["f32_randn"]["max_abs_err"]
+        del a, b
+        torch.cuda.empty_cache()
+    a = torch.randint(-5, 6, (K, M), generator=gen, device=dev, dtype=torch.int8).to(tdt)
+    b = torch.randint(-5, 6, (K, N), generator=gen, device=dev, dtype=torch.int8).to(tdt)
+    got = pr.transposed_lhs_product(a, b)
+    ref = pr.transposed_lhs_product_plain(a, b)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"times P1 {dtype}: differs from the plain version")
+    del got
+    kernel_ms = _time_ms(torch, lambda: pr.transposed_lhs_product(a, b), 5)
+    plain_ms = _time_ms(torch, lambda: pr.transposed_lhs_product_plain(a, b), 3)
+    if dtype == "int8":
+        at, bt = a.t().contiguous(), b.t().contiguous()
+        if not torch.equal(torch._int_mm(at, bt.t()), ref):
+            raise AssertionError("times P1 int8: _int_mm on K-major operands differs")
+        library_ms = _time_ms(torch, lambda: torch._int_mm(a.t().contiguous(), b), 5)
+        out["library_no_copy_ms"] = _time_ms(torch, lambda: torch._int_mm(at, b), 5)
+        out["library_kmajor_ms"] = _time_ms(torch, lambda: torch._int_mm(at, bt.t()), 5)
+        out["library_both_copies_ms"] = _time_ms(
+            torch, lambda: torch._int_mm(a.t().contiguous(), b.t().contiguous().t()), 5)
+        out["transpose_copy_ms"] = _time_ms(torch, lambda: a.t().contiguous(), 5)
+        del at, bt
+    else:
+        library_ms = _time_ms(torch, lambda: torch.matmul(a.t(), b), 5)
+    del ref
+    ops = 2.0 * K * M * N
+    peak = {"int8": PEAK_INT8_OPS, "bfloat16": PEAK_BF16_FLOPS, "float32": PEAK_F32_FLOPS}[dtype]
+    nbytes = a.element_size() * (K * M + K * N) + 4.0 * M * N
+    ops_ms, bytes_ms = 1e3 * ops / peak, 1e3 * nbytes / PEAK_BYTES
+    out.update({"kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "kernel_tops": ops / kernel_ms / 1e9})
+    del a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def _time_p2(torch, pr, mi4, p2):
+    """P2 as a function: out = steps * a . b needs one product and a scale,
+    so its bound is one product's (here its bytes) and its library yardstick
+    one torch._int_mm times steps. The probe's own figure, the rate of its
+    `steps` products against the int8 peak, is kept beside them."""
+    a, b = mi4.inputs(torch.device("cuda"))
+    steps = mi4.STEPS
+    ref = pr.int_rate_product_plain(a, b, steps)
+    if not torch.equal(torch._int_mm(a, b) * steps, ref):
+        raise AssertionError("times P2: _int_mm times steps differs from the plain version")
+    ops = 2.0 * mi4.M * mi4.K * mi4.N
+    nbytes = 1.0 * (mi4.M * mi4.K + mi4.K * mi4.N) + 4.0 * mi4.M * mi4.N
+    bound, bound_by = _bound(ops, nbytes, int8=True)
+    return {
+        "shape": {"M": mi4.M, "K": mi4.K, "N": mi4.N, "steps": steps},
+        "kernel_ms": p2["int8"]["ms"], "max_abs_err": 0.0,
+        "plain_ms": _time_ms(torch, lambda: pr.int_rate_product_plain(a, b, steps), 3),
+        "library_ms": _time_ms(torch, lambda: torch._int_mm(a, b) * steps, 5),
+        "bound_ms": bound, "bound_by": bound_by,
+        "rate_tops": p2["int8"]["tops"], "rate_bound_ms": p2["int8"]["bound_ms"],
+        "s4_ms": p2["s4"]["ms"], "s4_tops": p2["s4"]["tops"],
+        "s4_over_int8": p2["s4"]["tops"] / p2["int8"]["tops"],
+    }
+
+
+def phase_probes(torch, dev):
+    from similaripy_tpu_torch.benchmarks import kernel_check as kc
+    from similaripy_tpu_torch.benchmarks import micro_int4 as mi4
+    from similaripy_tpu_torch.benchmarks import micro_tile_kernel as mtk
+    from similaripy_tpu_torch.benchmarks import probes as pr
+
+    out = {}
+    t = time.perf_counter()
+    out["path"] = _probe_path(torch, pr, kc, mi4, dev)
+    out["parity"] = _parity_probes(torch, pr, dev)
+    out["path_parity_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    for dtype in ("float32", "bfloat16", "int8"):
+        out[f"P1_{dtype}"] = _time_p1(torch, pr, dtype)
+    out["P2_int8"] = _time_p2(torch, pr, mi4, out["path"]["p2"])
+    out["times_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    log = []
+    probes, results, ok = kc.run_sweep(quick=True, device=dev, out=log.append)
+    if not ok:
+        raise AssertionError("kernel_check --quick failed:\n" + "\n".join(log))
+    out["kernel_check_quick"] = {"probes": probes, "variants": [
+        {k: r[k] for k in ("label", "rel", "tol", "nnz", "launches", "kernel_s", "plain_s")}
+        for r in results]}
+    out["kernel_check_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    micro = {}
+    for fresh in (False, True):
+        r = mtk.run(reps=5, fresh=fresh, device=dev)
+        micro["fresh" if fresh else "chained"] = {"round_ms": r["round_ms"],
+                                                  "bound_ms": r["bound_ms"]}
+        micro["shape"] = r["shape"]
+        del r
+        torch.cuda.empty_cache()
+    out["K1_micro"] = micro
+    out["K1_micro_s"] = time.perf_counter() - t
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -998,12 +1239,20 @@ def main() -> int:
     times = phase_times(torch, sim, tt, st, sc, urm, state)
     emit({"phase": "times", **times, "seconds": time.perf_counter() - t0})
 
-    launches = {k: sum(c["launches"][k] for c in main_path["calls"]) for k in KERNELS}
+    t0 = time.perf_counter()
+    probes = phase_probes(torch, dev)
+    emit({"phase": "probes", **probes, "seconds": time.perf_counter() - t0})
+
+    launches = {k: sum(c["launches"][k] for c in main_path["calls"])
+                for k in KERNELS if k not in PROBE_KERNELS}
+    launches.update(probes["path"]["launches"])
     if not all(launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+        raise AssertionError(f"a kernel of the main path or the probe path never launched: "
+                             f"{launches}")
     timed = {"tile_topk": times["K1_f32"], "sym_topk": times["K2_f32_live"],
              "scatter": times["K5_f32"], "panel_topk": times["K3_f32"],
-             "gather": times["K4_f32"]}
+             "gather": times["K4_f32"], "probe_tlhs": probes["P1_int8"],
+             "probe_int_mma": probes["P2_int8"]}
     errs = {
         "tile_topk": max(times["K1_f32"]["max_abs_err"], times["K1_int8"]["max_abs_err"],
                          times["K1_f32_recommend"]["max_abs_err"],
@@ -1015,6 +1264,9 @@ def main() -> int:
         "panel_topk": max(times["K3_f32"]["max_abs_err"], times["K3_int8"]["max_abs_err"],
                           *parity["K3"]["max_abs_err"].values()),
         "gather": 0.0,
+        # P1 is bit-equal on integer data; its f32 errors on normal data
+        "probe_tlhs": max(probes["parity"]["max_abs_err"], probes["P1_float32"]["max_abs_err"]),
+        "probe_int_mma": 0.0,
     }
     emit({"kernels": [{
         "name": name,

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` (K1 ``tile_topk.cu``, K2 ``sym_topk.cu``, K3
-``panel_topk.cu``, K4 ``gather.cu``, K5 ``scatter.cu``, with the shared
+``panel_topk.cu``, K4 ``gather.cu``, K5 ``scatter.cu``, and the hardware
+probes P1 ``probe_tlhs.cu`` and P2 ``probe_int_mma.cu``, with the shared
 ``csrc/*.cuh`` headers) is compiled by
 ``nvcc`` into one shared library with a plain C interface, loaded with
 ``ctypes``. No PyTorch header takes part, so a build takes seconds, not
@@ -110,6 +111,10 @@ def load() -> ctypes.CDLL:
         lib.panel_topk_rows.restype = i
         lib.gather_rows.argtypes = [p, ctypes.c_longlong, ctypes.c_longlong, p, i, p, p]
         lib.gather_rows.restype = i
+        lib.probe_tlhs.argtypes = [i, p, p, i, i, i, p, p]
+        lib.probe_tlhs.restype = i
+        lib.probe_int_mma.argtypes = [i, p, p, i, i, i, i, p, p]
+        lib.probe_int_mma.restype = i
         lib.tile_error_string.argtypes = [i]
         lib.tile_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -69,6 +69,32 @@ def test_imports_and_runs_with_jax_blocked():
     assert "isolated ok" in proc.stdout
 
 
+def test_benchmarks_import_with_jax_blocked():
+    """The probe and benchmark modules import, and the kernel-check sweep's
+    P1 probe runs, where importing jax or similaripy_tpu fails."""
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["similaripy_tpu"] = None
+        sys.modules["benchmarks"] = None
+        import similaripy_tpu_torch.benchmarks.kernel_check as kc
+        import similaripy_tpu_torch.benchmarks.micro_int4
+        import similaripy_tpu_torch.benchmarks.micro_tile_kernel
+        import similaripy_tpu_torch.benchmarks.probes
+        import similaripy_tpu_torch.benchmarks.tlhs_transpose_cost
+        assert kc.probe_transposed_lhs("int8", "cpu") == ("ok", True)
+        leaked = [n for n in sys.modules if n == "jax" and sys.modules[n] is not None
+                  or n.startswith(("jax.", "jaxlib", "similaripy_tpu.", "benchmarks."))]
+        assert not leaked, leaked
+        print("isolated ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "isolated ok" in proc.stdout
+
+
 def test_kernel_builds_with_plain_nvcc():
     """Build route: nvcc into a plain C library, loaded with ctypes; no
     PyTorch extension headers, no torch.utils.cpp_extension."""
@@ -76,7 +102,8 @@ def test_kernel_builds_with_plain_nvcc():
 
     sources = sorted((PORT / "csrc").glob("*.cu"))
     assert [p.name for p in sources] == [
-        "gather.cu", "panel_topk.cu", "scatter.cu", "sym_topk.cu", "tile_topk.cu",
+        "gather.cu", "panel_topk.cu", "probe_int_mma.cu", "probe_tlhs.cu", "scatter.cu",
+        "sym_topk.cu", "tile_topk.cu",
     ]
     assert build.sources() == sources
     for path in sources + sorted((PORT / "csrc").glob("*.cuh")):
