@@ -16,9 +16,13 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
              K1: small ragged shapes in every mode (f32, bf16, int8) x carry
              x mask, with epilogue flag sets. K2: every mode, symmetric and
              asymmetric epilogues, blocks with dead, diagonal and live anchor
-             rows, cold and warm carries, k > tc, and the main path's widths
+             rows, cold and warm carries, k > tc, the main path's widths
              (sw = 2,048, and sw = 18,432 whose col side takes more than one
-             shared-memory chunk) (tests/torch_k2_cases.py). K3: every mode
+             shared-memory chunk), and the edges of the product's copy ring:
+             K shorter than the ring, K ending mid-ring and mid-slab, a band
+             that cuts a three-tile anchor group, the asymmetric epilogue on a
+             diagonal block at tc 2,048, int8 over all of [-128, 127]
+             (tests/torch_k2_cases.py). K3: every mode
              with and without the hot bias under each mask, k_pad > tc, K of
              several KB blocks, tc up to 4,096 (tests/torch_k3_cases.py). K4:
              every dtype, repeated and unsorted ids and the last row, rows not
@@ -53,7 +57,8 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
              often as the plan needs, 64 rows of the f32 call match the
              float64 oracle; both routes' walls and the plans are printed
   4 times    at the main path's shapes: K2 on a live off-diagonal block and a
-             diagonal block, K5 on one inner tile, K1 on a 1,024-item cosine
+             diagonal block (f32), a live block in bf16 (the f32 build's
+             geometry) and in int8, K5 on one inner tile, K1 on a 1,024-item cosine
              panel (f32 and int8) and a recommend panel, K3 on a panel of the
              largest cold bucket of the 8,192-item cosine (f32 and int8) and
              K4 on its gather: kernel, bound, plain and library
@@ -61,7 +66,11 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
              index_put_; K1: torch.matmul or torch._int_mm + torch.topk; K3:
              the same with the bias and the epilogue; K4: index_select);
              K2's three launches and a warm repeat of the asymmetric call
-             under torch.profiler (device time by kernel, idle share)
+             under torch.profiler (device time by kernel, idle share); a line
+             of its own (`times_k2_split`) with K2's per-launch split
+             (product, row merge, col merge) of each timed block and its
+             product kernels' registers, spills, shared memory and blocks
+             per SM
   5 probes   the hardware-probe entry points, with the counts set to 0 just
              before and read just after: kernel_check's transposed-lhs probe
              (P1) in int8, bf16 and f32, and micro_int4's rate probe (P2) in
@@ -652,8 +661,8 @@ def _profile(torch, fn):
             "idle_share": (1.0 - busy / wall_ms) if busy else None, "top": top}
 
 
-def _bound(ops, nbytes, int8):
-    ops_ms = 1e3 * ops / (PEAK_INT8_OPS if int8 else PEAK_F32_FLOPS)
+def _bound(ops, nbytes, int8, peak=None):
+    ops_ms = 1e3 * ops / (peak or (PEAK_INT8_OPS if int8 else PEAK_F32_FLOPS))
     bytes_ms = 1e3 * nbytes / PEAK_BYTES
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
@@ -724,15 +733,17 @@ def _sym_setup(torch, m_items, compute_dtype, plan, **prep):
     return coo, vecs
 
 
-def _time_k2(torch, st, sc, coo, vecs, plan, params, int8, diagonal):
-    """K2 on one block of the main path: the first anchor group against a
-    live tile right of it, or against its own first tile (diagonal)."""
+def _time_k2(torch, st, sc, coo, vecs, plan, params, mode, diagonal):
+    """K2 on one block of the main path in `mode` (f32, bf16 or int8): the
+    first anchor group against a live tile right of it, or against its own
+    first tile (diagonal)."""
     from similaripy_tpu_torch.engine.params import build_pvec
 
     dev = torch.device("cuda")
     tc, gt, u_pad, k_pad = plan["tc"], plan["gt"], plan["u_pad"], plan["k_pad"]
     sw = gt * tc
-    cdt = torch.int8 if int8 else torch.float32
+    int8 = mode == "int8"
+    cdt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[mode]
     anchors = sc.densify_tiles(coo["ru"][:gt], coo["sl"][:gt], coo["vv"][:gt],
                                u_pad=u_pad, tc=tc, cdt=cdt)
     t = 0 if diagonal else plan["n_tiles"] - 1
@@ -750,7 +761,6 @@ def _time_k2(torch, st, sc, coo, vecs, plan, params, int8, diagonal):
     args = (anchors, d, *x, *y, crv, cri, crv[k_pad - 1].view(sw, 1), ccv, cci,
             torch.from_numpy(pv).to(dev))
     kw = dict(flags=params.static_flags(), k=k_pad, tc=tc, int8_mode=int8)
-    mode = "int8" if int8 else "f32"
     got = [o.cpu().numpy() for o in st.fused_sym_topk(*args, **kw)]
     ref = [o.cpu().numpy() for o in st.fused_sym_topk_plain(*args, **kw)]
     err = max(_compare(f"times K2 {side}", mode, got[s], ref[s])
@@ -770,7 +780,7 @@ def _time_k2(torch, st, sc, coo, vecs, plan, params, int8, diagonal):
         if int8:
             xy = torch._int_mm(a2, d).float() * pvl[9]
         else:
-            xy = torch.matmul(a2, d)
+            xy = torch.matmul(a2, d).float()
         val = splus_epilogue(xy, xy != 0, *x, *y, pvl, kw["flags"])
         return torch.topk(val, k_pad, dim=1), torch.topk(val.T, k_pad, dim=1)
 
@@ -780,16 +790,35 @@ def _time_k2(torch, st, sc, coo, vecs, plan, params, int8, diagonal):
     item = anchors.element_size()
     nbytes = (item * (sw * u_pad + u_pad * tc) + 4.0 * (6 * sw + 6 * tc + 16)
               + 2 * 8.0 * k_pad * (sw + tc))  # carries in and out, values and ids
-    bound_ms, bound_by = _bound(ops, nbytes, int8)
+    bound_ms, bound_by = _bound(ops, nbytes, int8,
+                                PEAK_BF16_FLOPS if mode == "bf16" else None)
     return {
         "block": "diagonal" if diagonal else "live off-diagonal",
         "shape": {"sw": sw, "tc": tc, "u_pad": u_pad, "k_pad": k_pad, "t": t,
-                  "dtype": "int8" if int8 else "float32"},
+                  "dtype": str(cdt).replace("torch.", "")},
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "kernel_tops": ops / kernel_ms / 1e9, "max_abs_err": err,
-        "profile": launches,
+        "profile": launches, "split": _k2_split(launches),
     }
+
+
+def _k2_split(profile):
+    """Device ms of K2's three launches in one profiled call: the product
+    with its epilogue, the row-side merge, the col-side merge; None for a
+    launch of which the profiler kept no record."""
+    split = dict.fromkeys(("product_ms", "row_merge_ms", "col_merge_ms"))
+    for name, v in profile["top"].items():
+        if "merge_kernel<true>" in name:
+            key = "row_merge_ms"
+        elif "merge_kernel<false>" in name:
+            key = "col_merge_ms"
+        elif "sym_simt_kernel" in name or "sym_s8_kernel" in name:
+            key = "product_ms"
+        else:
+            continue
+        split[key] = (split[key] or 0.0) + v["ms"]
+    return split
 
 
 def _time_k5(torch, sc, coo, plan, int8):
@@ -928,14 +957,27 @@ def phase_times(torch, sim, tt, st, sc, urm, state):
     cos_prep = dict(l2=1.0, c1=0.5, c2=0.5)
     out = {}
     coo, vecs = _sym_setup(torch, urm_n.T.tocsr(), "float32", plans["cosine"], **cos_prep)
-    out["K2_f32_live"] = _time_k2(torch, st, sc, coo, vecs, plans["cosine"], cos, False, False)
-    out["K2_f32_diagonal"] = _time_k2(torch, st, sc, coo, vecs, plans["cosine"], cos, False, True)
+    out["K2_f32_live"] = _time_k2(torch, st, sc, coo, vecs, plans["cosine"], cos, "f32", False)
+    out["K2_f32_diagonal"] = _time_k2(torch, st, sc, coo, vecs, plans["cosine"], cos, "f32", True)
     out["K5_f32"] = _time_k5(torch, sc, coo, plans["cosine"], False)
     del coo, vecs
+    # bf16 (compute_dtype='bfloat16') at the f32 build's geometry: its rate
+    coo, vecs = _sym_setup(torch, urm_n.T.tocsr(), "bfloat16", plans["cosine"], **cos_prep)
+    out["K2_bf16_live"] = _time_k2(torch, st, sc, coo, vecs, plans["cosine"], cos, "bf16", False)
+    del coo, vecs
     coo, vecs = _sym_setup(torch, urm.T.tocsr(), "int8", plans["cosine_int8"], **cos_prep)
-    out["K2_int8_live"] = _time_k2(torch, st, sc, coo, vecs, plans["cosine_int8"], cos, True, False)
+    out["K2_int8_live"] = _time_k2(torch, st, sc, coo, vecs, plans["cosine_int8"], cos, "int8",
+                                   False)
     out["K5_int8"] = _time_k5(torch, sc, coo, plans["cosine_int8"], True)
     del coo, vecs
+    # K2's per-launch split of each timed block, and its product kernels'
+    # registers, spills (local bytes), shared memory and blocks per SM
+    emit({"phase": "times_k2_split",
+          "blocks": {k: {**out[k]["split"], "kernel_ms": out[k]["kernel_ms"],
+                         "tops": out[k]["kernel_tops"]}
+                     for k in ("K2_f32_live", "K2_f32_diagonal", "K2_bf16_live", "K2_int8_live")},
+          "product_kernels": {str(dt).replace("torch.", ""): st.product_attrs(dt)
+                              for dt in (torch.float32, torch.bfloat16, torch.int8)}})
     # where a warm symmetric call's wall goes, and the device's idle share
     out["asymmetric_cosine_profile"] = _profile(torch, lambda: sim.asymmetric_cosine(
         state["pop_t"], alpha=0.3, k=100, verbose=False, device="cuda"))
@@ -1259,6 +1301,8 @@ def main() -> int:
                          *parity["K1"]["max_abs_err"].values()),
         "sym_topk": max(times["K2_f32_live"]["max_abs_err"],
                         times["K2_f32_diagonal"]["max_abs_err"],
+                        times["K2_bf16_live"]["max_abs_err"],
+                        times["K2_int8_live"]["max_abs_err"],
                         *parity["K2"]["max_abs_err"].values()),
         "scatter": 0.0,
         "panel_topk": max(times["K3_f32"]["max_abs_err"], times["K3_int8"]["max_abs_err"],

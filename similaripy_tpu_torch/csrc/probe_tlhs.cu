@@ -34,14 +34,14 @@
 //         fragments are then plain 32-bit shared loads. The shared rows
 //         are 17 words (16 + 1) apart, so the transposing stores of a warp
 //         fall in 32 distinct banks.
-//         Built with -DPROBE_TLHS_NO_TRANSPOSE (by
+//         Built with -DNO_PRMT_TRANSPOSE (by
 //         benchmarks/tlhs_transpose_cost.py only, never by the engine's
-//         library) the PRMT pass is compiled out: the results are wrong but
+//         library) the PRMT pass (transpose4x4, csrc/tensor_core.cuh) is
+//         compiled out: the results are wrong but
 //         every load and store is the same, so its time against this
 //         kernel's is what the transpose costs.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -117,40 +117,13 @@ __global__ void __launch_bounds__(THREADS) tlhs_f32_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// tensor-core helpers
+// tensor-core kernels: warp layout and fragment stores (ldmatrix, mma.sync
+// and the PRMT transpose are in csrc/tensor_core.cuh)
 // ---------------------------------------------------------------------------
 
 // Warp layout of the mma kernels: 8 warps as 2 (m) x 4 (n), each owning a
 // 64 x 32 sub-block = 4 m16 x 4 n8 mma tiles.
 constexpr int WM = 64, WN = 32;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // The m16n8 accumulator fragment of the mma tile whose corner is (r0, c0):
 // frag[0..1] at row g, frag[2..3] at row g + 8,
@@ -281,21 +254,6 @@ __device__ __forceinline__ uint32_t load_word(const int8_t* __restrict__ row, in
   for (int j = 0; j < 4; ++j)
     if (c + j < C) w |= (uint32_t)(uint8_t)p[j] << (8 * j);
   return w;
-}
-
-// w[i] holds bytes (i, 0..3) of a 4 x 4 byte block; afterwards w[j] holds
-// bytes (0..3, j).
-__device__ __forceinline__ void transpose4x4(uint32_t (&w)[4]) {
-#ifndef PROBE_TLHS_NO_TRANSPOSE
-  const uint32_t x0 = __byte_perm(w[0], w[1], 0x5140);  // (0,0) (1,0) (0,1) (1,1)
-  const uint32_t x1 = __byte_perm(w[0], w[1], 0x7362);  // (0,2) (1,2) (0,3) (1,3)
-  const uint32_t y0 = __byte_perm(w[2], w[3], 0x5140);  // (2,0) (3,0) (2,1) (3,1)
-  const uint32_t y1 = __byte_perm(w[2], w[3], 0x7362);  // (2,2) (3,2) (2,3) (3,3)
-  w[0] = __byte_perm(x0, y0, 0x5410);
-  w[1] = __byte_perm(x0, y0, 0x7632);
-  w[2] = __byte_perm(x1, y1, 0x5410);
-  w[3] = __byte_perm(x1, y1, 0x7632);
-#endif
 }
 
 // Slab k0 .. k0 + IBK of a row-major (K x C) operand, columns c0 .. c0 + 128

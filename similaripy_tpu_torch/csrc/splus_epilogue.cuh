@@ -1,6 +1,6 @@
-// Pieces shared by K1 (tile_topk.cu) and K2 (sym_topk.cu): the K-unit
-// operand types of the SIMT product, the S-Plus epilogue, and the 64-bit
-// sort keys of the exact top-k.
+// Pieces shared by K1 (tile_topk.cu) and K2 (sym_topk.cu): the operand
+// modes, the K-unit operand types of K1's SIMT product, the S-Plus
+// epilogue, and the 64-bit sort keys of the exact top-k.
 //
 // The epilogue is the one of similaripy_tpu/engine/pallas_kernels.py::
 // _epilogue_val, term by term in the same order, with explicitly rounded

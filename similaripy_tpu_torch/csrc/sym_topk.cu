@@ -24,16 +24,42 @@
 // the card so that the host never waits.
 //
 // What bounds it on an H100 SXM: the product. At the main path's shapes
-// (sw = tc = 2,048, K = 200,960) it does ~1,000 operations per byte of the
-// anchors and the tile: 67 TFLOP/s of f32 FMA outside the tensor cores for
-// f32, 989 TFLOP/s of bf16 and 1,979 TOP/s of int8 on the tensor cores.
+// (sw = tc = 2,048 f32, 4,096 int8; K = 200,960) it does ~500 (f32) to
+// ~4,000 (int8) operations per byte of the anchors and the tile, against
+// peaks (NVIDIA's data sheet, dense, at the 700 W limit) of 67 TFLOP/s of
+// f32 FMA outside the tensor cores for f32 and bf16 (bf16 operands, f32
+// products) and 1,979 TOP/s of int8 on the tensor cores.
 //
-// The design is K1's, kept simple:
-//   1. sym_product_kernel: K1's shared-memory SIMT product (128 x 128
-//      blocks, 8 x 8 per thread, __dp4a for int8), skipping row blocks
-//      below the band. The epilogue writes the row-side scores (sw x tc)
+// Three launches:
+//   1. the product with the fused epilogue, one output block per thread
+//      block (both operands are (K, tc) row-major: a block's 128 anchor rows
+//      are 128 columns of one anchor tile), skipping row blocks below the
+//      band. Both operands stream through a ring of STAGES = 3 shared-memory
+//      slabs filled by 16-byte cp.async copies (rows past K and columns
+//      past tc zero-filled), two slabs ahead of the one in use, with one
+//      barrier per slab. The epilogue writes the row-side scores (sw x tc)
 //      and, for rows with rt < t, the col-side scores transposed (tc x sw)
 //      to scratch that the wrapper allocates.
+//        f32, bf16  sym_simt_kernel: 128 x 128 blocks, SIMT FMA, 8 x 8
+//                   outputs a thread, 32 K rows a slab; the (K, tc) slab is
+//                   already the outer product's layout. Each output is one
+//                   in-order fmaf chain over k (no split, no TF32), so the
+//                   scores are those of the plain loop; bf16 is widened
+//                   exactly on the way out of shared memory.
+//        int8       sym_s8_kernel: 128 x 256 blocks, mma.sync m16n8k32 s8
+//                   -> s32 (exact), 8 warps of 64 x 64, 128 K bytes a slab,
+//                   one block per SM (128 accumulators a thread). mma.sync
+//                   wants k-contiguous words and the slab holds (k, m)
+//                   bytes, so each warp reads its fragments straight from the
+//                   arrived slab as 4 (k) x 4 (m) byte blocks and transposes
+//                   them in registers (transpose4x4, csrc/tensor_core.cuh).
+//                   The four words of a block are four columns, so a
+//                   fragment row (column) stands for a permuted column of
+//                   the warp's 64: one block gives a word to each of four
+//                   mma tiles, with no staging buffer and no second barrier,
+//                   and the epilogue maps the permutation back. The slab's
+//                   16-byte chunks are XOR-swizzled by bits 2..3 of the row
+//                   so that these reads hit 32 banks.
 //   2. merge_kernel<true>: one block per anchor row, K1's survivor sort and
 //      carry merge over the row-side plane.
 //   3. merge_kernel<false>: one block per tile column over the transposed
@@ -41,18 +67,24 @@
 //      holds at 8 bytes each, so they are taken in chunks of at most 16,384:
 //      each chunk keeps the values above the running kth, sorts them and
 //      merges them into the running list in shared memory.
-// Given away for later work: tensor cores, asynchronous loads, and keeping
-// the scores on chip instead of a round trip through device memory.
+// Shapes: tc a multiple of 128 (the executor's) and 16-byte aligned
+// operands, else the launch returns cudaErrorInvalidValue; any K.
+// Given away for later work: wgmma (an 8-bit operand must be K-major in
+// swizzled shared memory), TMA, and keeping the scores on chip instead of
+// a round trip through device memory.
 
 #include "splus_epilogue.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
 constexpr int BM = 128;       // output rows per block
-constexpr int BN = 128;       // output columns per block
-constexpr int BKU = 16;       // K units per shared-memory slab
-constexpr int PAD = 4;        // keeps slab rows 16-byte aligned, spreads banks
-constexpr int THREADS = 256;  // 16 x 16 threads, 8 x 8 outputs each
+constexpr int BN = 128;       // output columns per block (f32, bf16)
+constexpr int S8_BN = 256;    // output columns per block (int8)
+constexpr int THREADS = 256;  // 8 warps
+constexpr int STAGES = 3;     // slabs in the shared-memory ring
+constexpr int FBK = 32;       // f32 / bf16: K rows per slab
+constexpr int IBK = 128;      // int8: K bytes per slab, four k32 steps
 constexpr int MERGE_THREADS = 512;
 constexpr int MAX_CHUNK = 16384;  // candidates sorted at once (128 KB of keys)
 constexpr int MAX_SMEM = 227 * 1024;
@@ -71,128 +103,294 @@ __device__ __forceinline__ int col_rows(const float* pvec, int sw, int tc) {
   return clampi(((int)pvec[12] - (int)pvec[13]) * tc, 0, sw);
 }
 
-// K unit u of a vector that starts at `base` with its K values `step`
-// apart (int8 packs four of them).
-template <int MODE>
-__device__ __forceinline__ typename Unit<MODE>::smem load_unit(
-    const typename Unit<MODE>::elem* __restrict__ p, size_t base, size_t step,
-    int u, int K) {
-  if constexpr (MODE == MODE_INT8) {
-    int w = 0;
+// What the product's epilogue reads and writes.
+struct Epi {
+  const float *xt, *xc, *xd;     // X at the anchor rows (sw)
+  const float *yt, *yc, *yd;     // Y at the tile columns (tc)
+  const float *x2t, *x2c, *x2d;  // asymmetric col side: X at the tile (tc), or null
+  const float *y2t, *y2c, *y2d;  //   and Y at the anchor rows (sw)
+  const float* pvec;
+  int flags;
+  float* scores_r;  // (sw, tc)
+  float* scores_c;  // (tc, sw)
+};
+
+// The fused epilogue of a thread's 8 x NC cells: anchor rows rows[i] x tile
+// columns cols[j], with products xy(i, j); columns past tc are skipped.
+template <int NC, typename XY>
+__device__ __forceinline__ void epilogue(const Epi& e, int sw, int tc, int n_live, int n_col,
+                                         const int (&rows)[8], const int (&cols)[NC], XY xy) {
+  const float thr = e.pvec[8];
+  const bool asym = e.x2t != nullptr;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = 4 * u + j;
-      const int b = k < K ? (int)(uint8_t)p[base + (size_t)k * step] : 0;
-      w |= b << (8 * j);
+  for (int i = 0; i < 8; ++i) {
+    const int r = rows[i];
+    if (r >= n_live) continue;
+    const float xtr = e.xt[r], xcr = e.xc[r], xdr = e.xd[r];
+    const bool col_side = r < n_col;
+    const float y2tr = (col_side && asym) ? e.y2t[r] : 0.0f;
+    const float y2cr = (col_side && asym) ? e.y2c[r] : 0.0f;
+    const float y2dr = (col_side && asym) ? e.y2d[r] : 0.0f;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int c = cols[j];
+      if (c >= tc) continue;
+      const float v = xy(i, j);
+      const bool cand = v != 0.0f;
+      const float val = splus_val(v, e.flags, e.pvec, xtr, xcr, xdr, e.yt[c], e.yc[c], e.yd[c]);
+      e.scores_r[(size_t)r * tc + c] = (cand && val >= thr) ? val : -INFINITY;
+      if (col_side) {
+        const float vc = asym ? splus_val(v, e.flags, e.pvec, e.x2t[c], e.x2c[c], e.x2d[c],
+                                          y2tr, y2cr, y2dr)
+                              : val;
+        e.scores_c[(size_t)c * sw + r] = (cand && vc >= thr) ? vc : -INFINITY;
+      }
     }
-    return w;
-  } else {
-    return to_f32(p[base + (size_t)u * step]);
   }
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(THREADS) sym_product_kernel(
-    const typename Unit<MODE>::elem* __restrict__ a,
-    const typename Unit<MODE>::elem* __restrict__ d, int sw, int K, int tc,
-    const float* __restrict__ xt, const float* __restrict__ xc,
-    const float* __restrict__ xd, const float* __restrict__ yt,
-    const float* __restrict__ yc, const float* __restrict__ yd,
-    const float* __restrict__ x2t, const float* __restrict__ x2c,
-    const float* __restrict__ x2d, const float* __restrict__ y2t,
-    const float* __restrict__ y2c, const float* __restrict__ y2d,
-    const float* __restrict__ pvec, int flags, float* __restrict__ scores_r,
-    float* __restrict__ scores_c) {
-  using U = Unit<MODE>;
-  using S = typename U::smem;
-  using V = typename U::vec;
-  __shared__ __align__(16) S as[BKU][BM + PAD];
-  __shared__ __align__(16) S ds[BKU][BN + PAD];
+// ---------------------------------------------------------------------------
+// f32 and bf16: pipelined SIMT
+// ---------------------------------------------------------------------------
 
-  const int n_live = live_rows(pvec, sw, tc);
-  const int n_col = col_rows(pvec, sw, tc);
+// the row (or column) of micro-tile entry i: two 4-wide strips 64 apart
+__device__ __forceinline__ int strip(int t, int i) {
+  return i < 4 ? t * 4 + i : 64 + t * 4 + i - 4;
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// four bf16 widened to f32 (exact: the bf16 bits are the f32's top half)
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// a thread's 8 values of one slab row: strips t * 4 and 64 + t * 4
+template <typename E>
+__device__ __forceinline__ void load_frag(float (&v)[8], const E* row, int t) {
+  const float4 lo = load4(row + t * 4), hi = load4(row + 64 + t * 4);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+template <typename E>
+constexpr size_t simt_smem() { return 2ull * STAGES * FBK * BM * sizeof(E); }
+
+template <typename E>
+__global__ void __launch_bounds__(THREADS, 2) sym_simt_kernel(
+    const E* __restrict__ a, const E* __restrict__ d, int sw, int K, int tc, Epi e) {
+  constexpr int ROW_CHUNKS = BM * (int)sizeof(E) / 16;  // 16-byte chunks in a slab row
+  constexpr int ROW_STEP = THREADS / ROW_CHUNKS;        // rows between a thread's copies
+  constexpr int COPIES = FBK / ROW_STEP;                // per operand, thread and slab
+  constexpr int STAGE = FBK * BM;                       // elements per operand and slab
+  extern __shared__ __align__(16) unsigned char smem[];
+  E* as = reinterpret_cast<E*>(smem);  // [STAGES][FBK][BM]
+  E* ds = as + STAGES * STAGE;         // [STAGES][FBK][BN]
+
+  const int n_live = live_rows(e.pvec, sw, tc);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   if (m0 >= n_live) return;  // below the band: the merge passes the carry
+  const int n_col = col_rows(e.pvec, sw, tc);
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int ku = (K + U::K - 1) / U::K;  // K in units
+  // this thread's copies: rows crow + i * ROW_STEP of a slab, 16 bytes at
+  // ccol; the block's anchor rows are columns m0 % tc .. + 128 of anchor
+  // tile m0 / tc
+  const int crow = tid / ROW_CHUNKS, ccol = (tid % ROW_CHUNKS) * (16 / (int)sizeof(E));
+  const size_t first = (size_t)crow * tc + ccol;
+  const E* ag = a + (size_t)(m0 / tc) * K * tc + m0 % tc + first;
+  const E* dg = d + n0 + first;
+  const int n_slabs = (K + FBK - 1) / FBK;
 
-  S acc[8][8];
+  auto fetch = [&](int s) {
+    if (s < n_slabs) {
+      E* sa = as + (s % STAGES) * STAGE + crow * BM + ccol;
+      E* sd = ds + (s % STAGES) * STAGE + crow * BN + ccol;
+#pragma unroll
+      for (int i = 0; i < COPIES; ++i) {
+        const bool full = s * FBK + crow + i * ROW_STEP < K;
+        const size_t off = (size_t)(s * FBK + i * ROW_STEP) * tc;
+        cp_async16(sa + i * ROW_STEP * BM, full ? ag + off : a, full);
+        cp_async16(sd + i * ROW_STEP * BN, full ? dg + off : d, full);
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+
+  float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-  for (int u0 = 0; u0 < ku; u0 += BKU) {
 #pragma unroll
-    for (int i = 0; i < BM * BKU / THREADS; ++i) {
-      const int e = tid + i * THREADS;
-      // neighbouring threads read neighbouring anchor rows: the tile stack
-      // keeps an anchor tile's rows as its contiguous columns
-      const int r = e % BM, u = e / BM;
-      const int gr = m0 + r, gu = u0 + u;
-      as[u][r] = (gr < n_live && gu < ku)
-                     ? load_unit<MODE>(a, (size_t)(gr / tc) * K * tc + gr % tc, tc, gu, K)
-                     : S(0);
-    }
+  for (int s = 0; s < STAGES - 1; ++s) fetch(s);
+  for (int s = 0; s < n_slabs; ++s) {
+    cp_async_wait<STAGES - 2>();  // slab s is in
+    __syncthreads();              // ... for every thread, and slab s - 1 is done with
+    fetch(s + STAGES - 1);        // into slab s - 1's place
+    const E* sa = as + (s % STAGES) * STAGE;
+    const E* sd = ds + (s % STAGES) * STAGE;
+    float av[2][8], bv[2][8];
+    load_frag(av[0], sa, ty);
+    load_frag(bv[0], sd, tx);
 #pragma unroll
-    for (int i = 0; i < BN * BKU / THREADS; ++i) {
-      const int e = tid + i * THREADS;
-      const int u = e / BN, c = e % BN;
-      const int gc = n0 + c, gu = u0 + u;
-      ds[u][c] = (gc < tc && gu < ku) ? load_unit<MODE>(d, gc, tc, gu, K) : S(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < BKU; ++u) {
-      const V a0 = *reinterpret_cast<const V*>(&as[u][ty * 4]);
-      const V a1 = *reinterpret_cast<const V*>(&as[u][64 + ty * 4]);
-      const V b0 = *reinterpret_cast<const V*>(&ds[u][tx * 4]);
-      const V b1 = *reinterpret_cast<const V*>(&ds[u][64 + tx * 4]);
-      const S av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const S bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    for (int kk = 0; kk < FBK; ++kk) {
+      if (kk + 1 < FBK) {  // the next row's values load while this row's FMAs run
+        load_frag(av[(kk + 1) & 1], sa + (kk + 1) * BM, ty);
+        load_frag(bv[(kk + 1) & 1], sd + (kk + 1) * BN, tx);
+      }
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = mac(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[kk & 1][i], bv[kk & 1][j], acc[i][j]);
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
 
-  const float thr = pvec[8];
-  const float inv_scale = pvec[9];
+  int rows[8], cols[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int r = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (r >= n_live) continue;
-    const float xtr = xt[r], xcr = xc[r], xdr = xd[r];
-    const bool col_side = r < n_col;
-    const bool asym = x2t != nullptr;
-    const float y2tr = (col_side && asym) ? y2t[r] : 0.0f;
-    const float y2cr = (col_side && asym) ? y2c[r] : 0.0f;
-    const float y2dr = (col_side && asym) ? y2d[r] : 0.0f;
+    rows[i] = m0 + strip(ty, i);
+    cols[i] = n0 + strip(tx, i);
+  }
+  epilogue(e, sw, tc, n_live, n_col, rows, cols, [&](int i, int j) { return acc[i][j]; });
+}
+
+// ---------------------------------------------------------------------------
+// int8: mma.sync m16n8k32 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr size_t S8_SMEM = (size_t)STAGES * IBK * (BM + S8_BN);
+
+// Byte offset of 16-byte chunk `ch` of row `r` of an int8 slab whose rows
+// are W bytes: the chunk index is XORed with twice bits 2..3 of the row, so
+// a warp's fragment reads (rows 4 tig + q for tig 0..3, words of two
+// neighbouring chunks for g 0..7) fall in 8 distinct chunks, 32 banks.
+template <int W>
+__device__ __forceinline__ int swz(int r, int ch) {
+  return r * W + ((ch ^ (((r >> 2) & 3) << 1)) << 4);
+}
+
+// rows r0 .. r0 + 3 of 32-bit word `word` (four bytes of m), transposed:
+// w[j] holds the four k bytes of column 4 word + j
+template <int W>
+__device__ __forceinline__ void block4x4(uint32_t (&w)[4], const unsigned char* s, int r0,
+                                         int word) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (c >= tc) continue;
-      float xy;
-      if constexpr (MODE == MODE_INT8) {
-        xy = __fmul_rn(__int2float_rn(acc[i][j]), inv_scale);
-      } else {
-        xy = acc[i][j];
+  for (int q = 0; q < 4; ++q)
+    w[q] = *reinterpret_cast<const uint32_t*>(s + swz<W>(r0 + q, word >> 2) + (word & 3) * 4);
+  transpose4x4(w);
+}
+
+// One 128 x 256 block: 8 warps of 64 x 64 (4 m16 x 8 n8 tiles each), 128
+// accumulators a thread, so one block per SM.
+__global__ void __launch_bounds__(THREADS, 1) sym_s8_kernel(
+    const int8_t* __restrict__ a, const int8_t* __restrict__ d, int sw, int K, int tc, Epi e) {
+  constexpr int SA = IBK * BM, SD = IBK * S8_BN;  // bytes per operand and slab
+  constexpr int A_COPIES = SA / 16 / THREADS, D_COPIES = SD / 16 / THREADS;
+  constexpr int D_CHUNKS = S8_BN / 16;            // 16-byte chunks in a d slab row
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* as = smem;                   // [STAGES][IBK][BM], swizzled rows
+  unsigned char* ds = smem + STAGES * SA;     // [STAGES][IBK][S8_BN]
+
+  const int n_live = live_rows(e.pvec, sw, tc);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * S8_BN;
+  if (m0 >= n_live) return;  // below the band: the merge passes the carry
+  const int n_col = col_rows(e.pvec, sw, tc);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 64;
+
+  // the block's anchor rows are columns m0 % tc .. + 128 of anchor tile
+  // m0 / tc; its tile columns n0 .. n0 + 256 of d, those past tc zero-filled
+  const int8_t* ab = a + (size_t)(m0 / tc) * K * tc + m0 % tc;
+  const int8_t* db = d + n0;
+  const int n_slabs = (K + IBK - 1) / IBK;
+
+  auto fetch = [&](int s) {
+    if (s < n_slabs) {
+      unsigned char* sa = as + (s % STAGES) * SA;
+      unsigned char* sd = ds + (s % STAGES) * SD;
+#pragma unroll
+      for (int i = 0; i < A_COPIES; ++i) {
+        const int c = tid + i * THREADS, row = c >> 3, ch = c & 7;
+        const int k = s * IBK + row;
+        const bool full = k < K;
+        cp_async16(sa + swz<BM>(row, ch), full ? ab + (size_t)k * tc + ch * 16 : a, full);
       }
-      const bool cand = xy != 0.0f;
-      const float val = splus_val(xy, flags, pvec, xtr, xcr, xdr, yt[c], yc[c], yd[c]);
-      scores_r[(size_t)r * tc + c] = (cand && val >= thr) ? val : -INFINITY;
-      if (col_side) {
-        const float vc = asym ? splus_val(xy, flags, pvec, x2t[c], x2c[c], x2d[c],
-                                          y2tr, y2cr, y2dr)
-                              : val;
-        scores_c[(size_t)c * sw + r] = (cand && vc >= thr) ? vc : -INFINITY;
+#pragma unroll
+      for (int i = 0; i < D_COPIES; ++i) {
+        const int c = tid + i * THREADS, row = c / D_CHUNKS, ch = c % D_CHUNKS;
+        const int k = s * IBK + row;
+        const bool full = k < K && n0 + ch * 16 < tc;
+        cp_async16(sd + swz<S8_BN>(row, ch), full ? db + (size_t)k * tc + ch * 16 : d, full);
       }
     }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+
+  int acc[4][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) fetch(s);
+  for (int s = 0; s < n_slabs; ++s) {
+    cp_async_wait<STAGES - 2>();  // slab s is in
+    __syncthreads();              // ... for every thread, and slab s - 1 is done with
+    fetch(s + STAGES - 1);        // into slab s - 1's place
+    const unsigned char* sa = as + (s % STAGES) * SA;
+    const unsigned char* sd = ds + (s % STAGES) * SD;
+#pragma unroll
+    for (int ks = 0; ks < IBK; ks += 32) {
+      // fragment row g of m-tile mi is column 4 g + mi of the warp's first
+      // 32, row g + 8 column 32 + 4 g + mi; column g of n-tile 4 h + j is
+      // column 32 h + 4 g + j of its 64
+      uint32_t af[4][4], bf[8][2];
+#pragma unroll
+      for (int kh = 0; kh < 2; ++kh) {  // k = ks + 16 kh + 4 tig .. + 3
+        const int r0 = ks + 16 * kh + 4 * tig;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t w[4];
+          block4x4<BM>(w, sa, r0, wm / 4 + 8 * h + g);
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi) af[mi][h + 2 * kh] = w[mi];
+          block4x4<S8_BN>(w, sd, r0, wn / 4 + 8 * h + g);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) bf[4 * h + j][kh] = w[j];
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
+    }
   }
+  cp_async_wait<0>();
+
+  // C row g + 8 hh of m-tile mi is anchor row wm + 32 hh + 4 g + mi; C
+  // column 2 tig + jj of n-tile ni is tile column wn + 32 (ni / 4) +
+  // 4 (2 tig + jj) + ni % 4
+  int rows[8], cols[16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) rows[i] = m0 + wm + 32 * (i & 1) + 4 * g + (i >> 1);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    cols[j] = n0 + wn + 32 * (j >> 3) + 4 * (2 * tig + (j & 1)) + ((j >> 1) & 3);
+  const float inv_scale = e.pvec[9];
+  epilogue(e, sw, tc, n_live, n_col, rows, cols, [&](int i, int j) {
+    return __fmul_rn(__int2float_rn(acc[i >> 1][j >> 1][2 * (i & 1) + (j & 1)]), inv_scale);
+  });
 }
 
 // One block per output row; the outputs and the carry are (k_pad x M).
@@ -312,19 +510,33 @@ __global__ void __launch_bounds__(MERGE_THREADS) merge_kernel(
   }
 }
 
-template <int MODE>
-cudaError_t launch_product(const void* a, const void* d, int sw, int K, int tc,
-                           const void* const* vecs, const void* pvec, int flags,
-                           void* scores_r, void* scores_c, cudaStream_t stream) {
-  using E = typename Unit<MODE>::elem;
-  const dim3 grid((tc + BN - 1) / BN, (sw + BM - 1) / BM);
-  auto f = [&](int i) { return static_cast<const float*>(vecs[i]); };
-  sym_product_kernel<MODE><<<grid, THREADS, 0, stream>>>(
-      static_cast<const E*>(a), static_cast<const E*>(d), sw, K, tc,
-      f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(7), f(8), f(9), f(10), f(11),
-      static_cast<const float*>(pvec), flags, static_cast<float*>(scores_r),
-      static_cast<float*>(scores_c));
+template <typename... P, typename... A>
+cudaError_t launch_product(void (*kern)(P...), size_t smem, int bn, int sw, int tc,
+                           cudaStream_t stream, A... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3((tc + bn - 1) / bn, sw / BM), THREADS, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// registers, local bytes (spills), dynamic shared bytes and resident blocks
+// per SM of one product kernel
+template <typename... P>
+cudaError_t kernel_attrs(void (*kern)(P...), size_t smem, int* out) {
+  cudaFuncAttributes at;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&at, kern);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, THREADS, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = at.numRegs;
+  out[1] = (int)at.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  return cudaSuccess;
 }
 
 template <bool ROW_SIDE>
@@ -352,22 +564,48 @@ extern "C" {
 // scores_c (tc x sw). `vecs` holds twelve f32 pointers: xt xc
 // xd (sw), yt yc yd (tc), then x2t x2c x2d (tc) y2t y2c y2d (sw), the last
 // six null unless the epilogue is asymmetric. mode 0 = f32, 1 = bf16,
-// 2 = int8.
+// 2 = int8. tc must be a multiple of 128 and a and d 16-byte aligned.
 int sym_product(int mode, const void* a, const void* d, int sw, int K, int tc,
                 const void* const* vecs, const void* pvec, int flags,
                 void* scores_r, void* scores_c, void* stream) {
-  if (sw <= 0 || tc <= 0 || K < 0 || sw % tc != 0) return (int)cudaErrorInvalidValue;
+  if (sw <= 0 || tc <= 0 || K < 0 || sw % tc != 0 || tc % BN != 0 ||
+      ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(d)) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto f = [&](int i) { return static_cast<const float*>(vecs[i]); };
+  const Epi e{f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(7), f(8), f(9), f(10), f(11),
+              static_cast<const float*>(pvec), flags, static_cast<float*>(scores_r),
+              static_cast<float*>(scores_c)};
   switch (mode) {
     case MODE_F32:
-      return (int)launch_product<MODE_F32>(a, d, sw, K, tc, vecs, pvec, flags,
-                                        scores_r, scores_c, s);
+      return (int)launch_product(sym_simt_kernel<float>, simt_smem<float>(), BN, sw, tc, s,
+                                 static_cast<const float*>(a), static_cast<const float*>(d),
+                                 sw, K, tc, e);
     case MODE_BF16:
-      return (int)launch_product<MODE_BF16>(a, d, sw, K, tc, vecs, pvec, flags,
-                                         scores_r, scores_c, s);
+      return (int)launch_product(
+          sym_simt_kernel<__nv_bfloat16>, simt_smem<__nv_bfloat16>(), BN, sw, tc, s,
+          static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(d), sw, K,
+          tc, e);
     case MODE_INT8:
-      return (int)launch_product<MODE_INT8>(a, d, sw, K, tc, vecs, pvec, flags,
-                                         scores_r, scores_c, s);
+      return (int)launch_product(sym_s8_kernel, S8_SMEM, S8_BN, sw, tc, s,
+                                 static_cast<const int8_t*>(a), static_cast<const int8_t*>(d),
+                                 sw, K, tc, e);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The product kernel of `mode`: out[0] registers a thread, out[1] local
+// memory bytes a thread (spills), out[2] dynamic shared memory bytes a
+// block, out[3] resident blocks per SM.
+int sym_product_attrs(int mode, int* out) {
+  switch (mode) {
+    case MODE_F32:
+      return (int)kernel_attrs(sym_simt_kernel<float>, simt_smem<float>(), out);
+    case MODE_BF16:
+      return (int)kernel_attrs(sym_simt_kernel<__nv_bfloat16>, simt_smem<__nv_bfloat16>(), out);
+    case MODE_INT8:
+      return (int)kernel_attrs(sym_s8_kernel, S8_SMEM, out);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -101,6 +101,8 @@ def load() -> ctypes.CDLL:
         lib.tile_topk_rows.restype = i
         lib.sym_product.argtypes = [i, p, p, i, i, i, p, p, i, p, p, p]
         lib.sym_product.restype = i
+        lib.sym_product_attrs.argtypes = [i, p]
+        lib.sym_product_attrs.restype = i
         lib.sym_merge.argtypes = [i, p, i, i, i, p, p, p, p, p, p, p]
         lib.sym_merge.restype = i
         lib.densify_tiles.argtypes = [i, p, p, p, i, i, i, i, p, p]

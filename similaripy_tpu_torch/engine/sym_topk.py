@@ -18,9 +18,12 @@ sw = gt * tc item rows, starting at tile a0, meets inner tile t:
 ``(sw, u_pad)`` or ``(gt, u_pad, tc)``, returns ``rvals, ridx (k_pad_r,
 sw)`` and ``cvals, cidx (k_pad_c, tc)``; ``pvec_ext`` holds [10] col_base,
 [11] row_base, [12] t, [13] a0. On CUDA tensors it launches the kernels of
-``csrc/sym_topk.cu`` (product with the fused epilogue, then the row-side
-and the col-side merge) or raises; on CPU tensors it runs
-``fused_sym_topk_plain``, the same function in plain PyTorch.
+``csrc/sym_topk.cu`` (the product with the fused epilogue: int8 by
+``mma.sync`` on the tensor cores, f32 and bf16 by SIMT FMA, both fed by a
+ring of ``cp.async`` copies; then the row-side and the col-side merge) or
+raises; on CPU tensors it runs ``fused_sym_topk_plain``, the same function
+in plain PyTorch. The kernels take tc a multiple of 128 (the executor's
+tiles) and 16-byte aligned operands, and raise on anything else.
 
 ``kernel_launches`` and ``plain_calls`` count the two routes (one per call).
 """
@@ -35,6 +38,11 @@ from .params import PVEC_LEN
 from .tile_topk import _MODES, _FLAG_BITS, _check, splus_epilogue
 
 NEG_INF = float("-inf")
+
+# the product kernels take each anchor tile in blocks of 128 rows (and the
+# inner tile in blocks of 128 or 256 columns, zero-filled past tc): tc must
+# be a multiple of 128
+KERNEL_TILE = 128
 
 # deeper carries take the symmetric executor's counted plain branch, as the
 # reference hands k_pad > 1024 to XLA (symmetric.py:913-920)
@@ -229,6 +237,8 @@ def _launch(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
     gt, u_pad, tc_a = a.shape
     if tc_a != tc:
         raise ValueError(f"anchor tiles are {tc_a} wide, tc={tc}")
+    if tc % KERNEL_TILE:
+        raise ValueError(f"tc={tc} is not a multiple of the kernel's {KERNEL_TILE}-wide blocks")
     sw = gt * tc
     k_pad_r, k_pad_c = sym_k_pads(k, tc, sw)
     if not 0 < k_pad_r <= MAX_KERNEL_K_PAD:
@@ -246,6 +256,9 @@ def _launch(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
     _check("ccv", ccv, (k_pad_c, tc), f32, dev)
     _check("cci", cci, (k_pad_c, tc), i32, dev)
     _check("pvec_ext", pvec_ext, (PVEC_LEN,), f32, dev)
+    for name, v in (("a", a), ("d", d)):
+        if v.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned (the kernel copies 16 bytes at a time)")
     vecs = [x_t, x_c, x_d, y_t, y_c, y_d]
     if x2 is not None:
         for name, v in zip(("x2t", "x2c", "x2d"), x2):
@@ -278,3 +291,14 @@ def _launch(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
                             cvals.data_ptr(), cidx.data_ptr(), stream), what)
     kernel_launches += 1
     return rvals, ridx, cvals, cidx
+
+
+def product_attrs(dtype) -> dict:
+    """Registers and local (spill) bytes a thread, dynamic shared memory a
+    block and resident blocks per SM of the product kernel that `dtype`
+    (float32, bfloat16 or int8) runs; needs a card."""
+    from .build import check, load
+
+    out = (ctypes.c_int * 4)()
+    check(load().sym_product_attrs(_MODES[dtype], out), f"sym_product_attrs({dtype})")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), out))

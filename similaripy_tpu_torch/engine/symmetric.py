@@ -113,12 +113,14 @@ def epilogue_is_symmetric(pre: Preprocessed, params: SPlusParams) -> bool:
 # Planning
 # ---------------------------------------------------------------------------
 
-# The planner's cost model; only the ratio of the two rates matters. Block
-# products run at K1's rates measured by chip_smoke.py on an NVIDIA H100
-# 80GB HBM3 at 700 W (31 TFLOP/s f32, 57 TOP/s int8; PERF.md), bf16 on the
-# same SIMT path as f32; K5 densified an f32 inner tile of 0.69 M entries,
-# its zero fill included, in 0.62 ms there: about 1e9 entries/s.
-_PRODUCT_RATE = {"int8": 57e12, "int4": 57e12, "bfloat16": 31e12, "float32": 31e12}
+# The planner's cost model; only the ratio of the two rates matters. A
+# block runs at K2's rates, product and both merges, measured by
+# chip_smoke.py (phase times, live blocks at u_pad 200,960) on an NVIDIA
+# H100 80GB HBM3 at 700.00 W (PERF.md): f32 (tc 2,048) 47.2 TFLOP/s, bf16
+# (tc 2,048) 37.1, int8 (tc 4,096) 404 TOP/s; int4 runs as int8. K5
+# densified an f32 inner tile of 0.69 M entries, its zero fill included, in
+# 0.65 ms there: about 1e9 entries/s.
+_PRODUCT_RATE = {"int8": 404e12, "int4": 404e12, "bfloat16": 37.1e12, "float32": 47.2e12}
 _DENSIFY_NNZ_RATE = 1e9
 
 

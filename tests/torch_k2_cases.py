@@ -32,9 +32,10 @@ EPILOGUES = {
 }
 
 
-def _case(mode, block, carry_on, epi, layout="3d", k=16, tc=128, gt=2, u=768):
+def _case(mode, block, carry_on, epi, layout="3d", k=16, tc=128, gt=2, u=768, label="",
+          full_range=False):
     return dict(mode=mode, block=block, carry_on=carry_on, epi=epi, layout=layout,
-                k=k, tc=tc, gt=gt, u=u)
+                k=k, tc=tc, gt=gt, u=u, label=label, full_range=full_range)
 
 
 # CPU parity against the JAX kernel (interpret mode: u a multiple of its
@@ -47,6 +48,10 @@ CASES = [
     for bi, block in enumerate(BLOCKS)
     for carry_on in (False, True)
 ] + [_case(mode, "diagonal", True, "asym", k=136) for mode in MODES]  # k > tc
+# a band that cuts a three-tile anchor group (t = a0 + 1: a live, a
+# diagonal and a dead tile), and int8 values over all of [-128, 127]
+CASES += [_case(mode, "cut", True, "sym", gt=3, label="band-cut") for mode in MODES]
+CASES += [_case("int8", "live", True, "sym", label="full-range", full_range=True)]
 
 # on the card only, at the widths of the main path: sw = 2,048 anchor rows
 # (its tc, gt = 1), and sw = 18,432, more col-side candidates than one
@@ -56,15 +61,40 @@ CARD_CASES = [
     for mode in MODES
     for carry_on, epi, gt in ((False, "sym", 1), (True, "asym", 9))
 ]
+# on the card only, the edges of the kernels' copy ring (3 slabs of 32 K
+# rows for f32 and bf16, of 128 K bytes for int8): K shorter than the ring
+# (u 128 for int8, u 40 for every mode, which also ends inside a slab), K
+# that ends mid-ring and mid-slab (u 1,000: 32 and 8 slabs), a band that
+# cuts the anchor group (gt 3, t = a0 + 1: a live, a diagonal and a dead
+# tile), the asymmetric epilogue on a diagonal block at tc 2,048; and int8
+# values over all of [-128, 127] at u 4,096, where no int32 sum can
+# overflow (a u8 or a PRMT selector slip changes the products). tc 128 and
+# 384 leave the int8 kernel's last 256-wide column block half empty.
+CARD_CASES += [
+    _case(mode, block, carry_on, epi, tc=tc, gt=gt, u=u, k=k, label=label)
+    for mode in MODES
+    for label, block, carry_on, epi, tc, gt, u, k in (
+        ("ring-short-u128", "live", False, "sym", 256, 2, 128, 24),
+        ("ring-short-u40", "diagonal", True, "asym", 128, 2, 40, 16),
+        ("mid-ring-u1000", "live", True, "sym", 384, 2, 1000, 40),
+        ("band-cut-gt3", "cut", True, "sym", 256, 3, 512, 32),
+        ("asym-diagonal-tc2048", "diagonal", False, "asym", 2048, 2, 640, 100),
+    )
+] + [_case("int8", "live", True, "sym", tc=512, gt=2, u=4096, k=64, label="full-range",
+           full_range=True)]
 
 
 def case_id(c) -> str:
     return (f"{c['mode']}-{c['block']}-{'warm' if c['carry_on'] else 'cold'}-{c['epi']}"
-            f"-{c['layout']}-k{c['k']}-tc{c['tc']}-gt{c['gt']}")
+            f"-{c['layout']}-k{c['k']}-tc{c['tc']}-gt{c['gt']}"
+            + (f"-{c['label']}" if c.get("label") else ""))
 
 
-def _items(rng, mode, u, n):
-    """n item columns over u users (the dense tiles' (u, n) layout)."""
+def _items(rng, mode, u, n, full_range=False):
+    """n item columns over u users (the dense tiles' (u, n) layout);
+    full_range: int8 values drawn from all of [-128, 127], none zero."""
+    if mode == "int8" and full_range:
+        return rng.integers(-128, 128, (u, n)).astype(np.int8)
     if mode == "int8":
         x = rng.integers(-6, 7, (u, n)) * (rng.random((u, n)) < 0.3)
         return x.astype(np.int8)
@@ -92,9 +122,11 @@ def make_inputs(c, fn):
     mode, tc, gt, u, k = c["mode"], c["tc"], c["gt"], c["u"], c["k"]
     rng = np.random.default_rng(zlib.crc32(case_id(c).encode()))
     sw = gt * tc
-    t = A0 + {"band": 0, "diagonal": gt - 1, "live": gt}[c["block"]]
+    # "cut": t = a0 + 1, the band cuts the group after its second tile
+    t = A0 + {"band": 0, "diagonal": gt - 1, "live": gt, "cut": 1}[c["block"]]
+    full = c.get("full_range", False)
     # items of tiles A0 .. A0 + gt (anchors, then one tile right of them)
-    items = _items(rng, mode, u, (gt + 1) * tc)
+    items = _items(rng, mode, u, (gt + 1) * tc, full)
     X, Y = _vectors(rng, items, c["epi"])
     anchors = items[:, :sw]
     d = items[:, (t - A0) * tc:(t - A0 + 1) * tc]
@@ -121,14 +153,14 @@ def make_inputs(c, fn):
     if c["carry_on"]:
         # row carry: the anchors against another tile far right of them;
         # col carry: another anchor group left of A0 against this tile
-        other = _items(rng, mode, u, tc)
+        other = _items(rng, mode, u, tc, full)
         Xo, Yo = _vectors(rng, other, c["epi"])
         far = A0 + gt + 3
         crv, cri, _, _ = fn(
             a, other, *[v[sel_a] for v in X], *Yo, crv, cri, crv[-1].reshape(sw, 1), ccv,
             cci, pvec(far, A0), x2=tuple(Xo) if asym else None,
             y2=tuple(v[sel_a] for v in Y) if asym else None, **kw)
-        left = _items(rng, mode, u, sw)
+        left = _items(rng, mode, u, sw, full)
         Xl, Yl = _vectors(rng, left, c["epi"])
         left_a = (np.ascontiguousarray(left.reshape(u, gt, tc).transpose(1, 0, 2))
                   if c["layout"] == "3d" else np.ascontiguousarray(left.T))
