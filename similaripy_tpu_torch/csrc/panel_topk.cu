@@ -18,17 +18,23 @@
 // with its running top-k outside the kernel (compact.py:358-363).
 //
 // What bounds it on an H100 SXM: the product. A panel of the main path
-// (TM = 256, K = 8,448-33,024 cold rows, cg ~ 42,000 columns) does 2*TM*K*cg
-// operations on (TM + cg)*K operand values, ~200 operations a byte, so it is
-// bound by operations: 67 TFLOP/s of f32 FMA outside the tensor cores,
-// 1,979 TOP/s of int8 on them.
+// (TM = 256, K = 8,448-33,024 cold rows, cg ~ 43,000-86,000 columns) does
+// 2*TM*K*cg operations on (TM + cg)*K operand values, ~2*TM = 512 a value:
+// ~128 a byte for f32, above the 20 at which the 67 TFLOP/s of f32 FMA
+// outside the tensor cores meet the 3.35 TB/s of device memory, so bound by
+// operations; ~512 a byte for int8, below the tensor cores' 591 (1,979
+// TOP/s), so bound by bytes: D's K x cg streaming once from device memory.
 //
 // The TPU kernel walks a (tile, K block) grid with a (TM x tc) accumulator
-// in VMEM. On Hopper the design is K1's (tile_kernels.cuh): a tiled SIMT
-// product over the whole (TM x cg) group, its accumulator started from the
-// bias, with the epilogue fused into a (TM x cg) f32 score scratch, then one
-// block per (row, tile) that sorts the tile's survivors. Given away, as in
-// K1: tensor cores, asynchronous loads, and scores kept on chip.
+// in VMEM. On Hopper the design is K1's (tile_kernels.cuh): one product over
+// the whole (TM x cg) group, its sum joined by the bias before the fused
+// epilogue, into a (TM x cg) f32 score scratch, then one block per (row,
+// tile) that sorts the tile's survivors. The product streams A and D
+// through a 3-slab cp.async ring: int8 on the tensor cores (mma.sync
+// m16n8k32 s8, 128 x 256 blocks, exact int32 sums with the int32 bias),
+// f32 and bf16 on SIMT FMA (128 x 128 blocks). The TM = 256 rows are two
+// row blocks, and the grid runs the two of each column block side by side,
+// so the second reads D from L2 and D streams from device memory once.
 
 #include "tile_kernels.cuh"
 
@@ -56,6 +62,9 @@ int panel_product(int mode, const void* a, const void* d, const void* bias, int 
                                 allowed, fmask, tmask, flags, scores,
                                 static_cast<cudaStream_t>(stream));
 }
+
+// K3's product kernel of `mode`, as tile_product_attrs (tile_topk.cu) reports it.
+int panel_product_attrs(int mode, int* out) { return (int)product_attrs<true>(mode, out); }
 
 // Launch 2: the top-k_pad of each (row, tile) of the (M x tiles*tc) scores,
 // no carry. Outputs ov, oi: tiles x k_pad x M.

@@ -1,6 +1,6 @@
-// Pieces shared by K1 (tile_topk.cu) and K2 (sym_topk.cu): the operand
-// modes, the K-unit operand types of K1's SIMT product, the S-Plus
-// epilogue, and the 64-bit sort keys of the exact top-k.
+// Pieces shared by K1 and K3 (tile_kernels.cuh) and K2 (sym_topk.cu): the
+// operand modes, the S-Plus epilogue, and the 64-bit sort keys of the exact
+// top-k.
 //
 // The epilogue is the one of similaripy_tpu/engine/pallas_kernels.py::
 // _epilogue_val, term by term in the same order, with explicitly rounded
@@ -20,28 +20,6 @@ enum Mode { MODE_F32 = 0, MODE_BF16 = 1, MODE_INT8 = 2 };
 enum Flag {
   F_L1 = 1, F_L2 = 2, F_L3 = 4, F_POW = 8, F_BAYES = 16, F_DENOM = 32
 };
-
-// One K unit in shared memory: a float for f32 and bf16 (bf16 is widened
-// on the way in, exactly), four int8 values packed in an int for int8.
-template <int MODE> struct Unit;
-template <> struct Unit<MODE_F32> {
-  using elem = float; using smem = float; using vec = float4;
-  static constexpr int K = 1;
-};
-template <> struct Unit<MODE_BF16> {
-  using elem = __nv_bfloat16; using smem = float; using vec = float4;
-  static constexpr int K = 1;
-};
-template <> struct Unit<MODE_INT8> {
-  using elem = int8_t; using smem = int; using vec = int4;
-  static constexpr int K = 4;
-};
-
-static __device__ __forceinline__ float to_f32(float v) { return v; }
-static __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-static __device__ __forceinline__ float mac(float a, float b, float acc) { return fmaf(a, b, acc); }
-static __device__ __forceinline__ int mac(int a, int b, int acc) { return __dp4a(a, b, acc); }
 
 // The S-Plus value of one cell: x* are the target's normalization values,
 // y* the candidate's; p is the parameter vector (a1 l1 l2 l3 t1 t2 stab

@@ -1,8 +1,9 @@
 // Tensor-core and asynchronous-copy helpers for NVIDIA Hopper (sm_90a),
-// shared by P1 (probe_tlhs.cu) and K2 (sym_topk.cu): shared-memory
-// addresses, ldmatrix, mma.sync in bf16 and s8, the in-register 4 x 4 byte
+// shared by P1 (probe_tlhs.cu), K2 (sym_topk.cu) and K1/K3's product
+// (tile_kernels.cuh): shared-memory addresses, ldmatrix (plain and
+// transposing), mma.sync in bf16 and s8, the in-register 4 x 4 byte
 // transpose that hands int8 (k, m) data to mma.sync as k-contiguous words,
-// and 16-byte cp.async copies with their group waits.
+// and 16- and 4-byte cp.async copies with their group waits.
 
 #pragma once
 
@@ -11,6 +12,15 @@
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 matrices of 16-bit words (8 rows of 16 bytes each), lanes
+// 8 i .. 8 i + 7 giving the row addresses of matrix i; lane 4 g + t receives
+// word t of row g of matrix i in register i
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
@@ -65,6 +75,14 @@ __device__ __forceinline__ void transpose4x4(uint32_t (&w)[4]) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes from global to shared memory, asynchronously (through L1: cp.async
+// copies below 16 bytes take .ca only); with `full` false zero-filled
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(full ? 4 : 0)
                : "memory");
 }
 

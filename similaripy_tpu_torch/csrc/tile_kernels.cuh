@@ -1,176 +1,526 @@
 // The two launches shared by K1 (tile_topk.cu) and K3 (panel_topk.cu): the
-// tiled SIMT product with the fused S-Plus epilogue and masks, and the
-// per-row exact top-k of its scores.
+// product with the fused S-Plus epilogue and masks, and the per-row exact
+// top-k of its scores.
 //
-//   product_kernel: scores (M x N f32) = epilogue(A . D + bias), -inf where
-//       a cell is no candidate or falls below the threshold. Each block owns
-//       a 128 x 128 output block, stages K slabs of 16 units through shared
-//       memory and keeps an 8 x 8 register micro-tile per thread (int8 packs
-//       four K values per unit and multiplies them with __dp4a). With BIAS,
-//       `bias` (M x N, f32, or int32 for int8) joins the accumulator before
-//       the epilogue, so int8 stays exact until the single inverse-scale
-//       multiply. BIAS is a template parameter, not a null test: with a
-//       runtime test the product took 159-174 registers (ptxas) and K1 ran
-//       1.2-1.9x slower on the card (chip_smoke.py); compiled apart, K1
-//       keeps its own times. K1's file instantiates BIAS = false only, K3's
-//       BIAS = true only (K3 without a bias calls K1's product).
-//   topk_kernel: one block per (row, tile) of the scores. It keeps the
-//       scores above the carry's kth, sorts them in shared memory (bitonic,
-//       on 64-bit keys that order by value and then by lowest column) and,
-//       with a carry, merges them with it. Tile t of a row is the columns
-//       [t*N, (t+1)*N) of a score row `ld` wide; its ids are
-//       pvec[10] + t*N + col, and its output is plane t of (tiles, k_pad, M).
+// Product: scores (M x N f32) = epilogue(A . D + bias), -inf where a cell is
+// no candidate or falls below the threshold. A is (M x K) row-major, D is
+// (K x N) row-major. Both stream through a ring of STAGES = 3 shared-memory
+// slabs, two slabs ahead of the one in use, with one barrier a slab; rows
+// past M, K rows past K and columns past N are zero-filled. Block (x, y) is
+// row block x of column block y, so the row blocks of one column block run
+// side by side and the second reads D from L2. With BIAS, `bias` (M x N,
+// f32, or int32 for int8) joins the sum before the epilogue, so int8 stays
+// exact until the single inverse-scale multiply. BIAS is a template
+// parameter, not a null test: a runtime test cost K1 1.2-1.9x on the card
+// (its register count rose). K1's file instantiates BIAS = false only, K3's
+// BIAS = true only (K3 without a bias calls K1's product).
+//   int8       tile_s8_kernel: mma.sync m16n8k32 s8 -> s32 (exact), 128 x
+//              256 blocks of 8 warps with 64 x 64 tiles, one block an SM, 128
+//              K bytes a slab. A's slab rows are already k-contiguous, the
+//              layout of mma.sync's A fragment: ldmatrix reads them as they
+//              are, 16-byte chunks XOR-swizzled by the row's low 3 bits. D's
+//              slab holds (k, n) bytes, so each warp reads its B fragments as
+//              4 (k) x 4 (n) byte blocks and transposes them in registers, as
+//              K2 does (csrc/sym_topk.cu, transpose4x4 in tensor_core.cuh);
+//              fragment columns then stand for permuted columns that the
+//              epilogue maps back.
+//   f32, bf16  tile_simt_kernel: 128 x 128 blocks, 8 x 8 SIMT FMA outputs a
+//              thread, slabs of 32 four-byte K units (32 f32 or 64 bf16 K
+//              rows). The FMA loop wants 8 rows of A at one k, and A's rows
+//              arrive k-contiguous: 4-byte cp.async copies land each unit
+//              transposed, A[u][m] with rows BM + 4 words apart, a warp
+//              copying 8 units of 4 rows (32 bytes of each, 32 banks). D's
+//              slab is already the outer product's layout. Each output is one
+//              in-order fmaf chain over k (no split, no TF32), so the scores
+//              are those of the plain loop; bf16 is widened exactly on the
+//              way out of shared memory.
+// Copies are 16 bytes (4 for A's f32 / bf16 units) when both operands' rows
+// and bases are 16-byte aligned (the main path: u_pad, K and tc are
+// multiples of 128), else 4-byte cp.async when they are 4-byte aligned, else
+// plain element loads and stores (V, a template parameter chosen at launch).
 //
-// Given away, for later work: bf16 and int8 run on the SIMT cores instead of
-// the tensor cores (wgmma), loads are neither asynchronous (TMA / cp.async)
-// nor double-buffered, and the scores round-trip through device memory
-// between the two launches instead of staying on chip.
+// Top-k: topk_kernel, one block per (row, tile) of the scores. It keeps the
+// scores above the carry's kth, sorts them in shared memory (bitonic, on
+// 64-bit keys that order by value and then by lowest column) and, with a
+// carry, merges them with it. Tile t of a row is the columns [t*N,
+// (t+1)*N) of a score row `ld` wide; its ids are pvec[10] + t*N + col, and
+// its output is plane t of (tiles, k_pad, M).
+//
+// Given away, for later work: wgmma and TMA, bf16 on the tensor cores, and
+// keeping the scores on chip instead of a round trip through device memory
+// between the two launches.
 
 #pragma once
 
 #include "splus_epilogue.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
 constexpr int BM = 128;       // output rows per block
-constexpr int BN = 128;       // output columns per block
-constexpr int BKU = 16;       // K units per shared-memory slab
-constexpr int PAD = 4;        // keeps slab rows 16-byte aligned, spreads banks
-constexpr int THREADS = 256;  // 16 x 16 threads, 8 x 8 outputs each
+constexpr int BN = 128;       // output columns per block (f32, bf16)
+constexpr int S8_BN = 256;    // output columns per block (int8)
+constexpr int THREADS = 256;  // 8 warps
+constexpr int STAGES = 3;     // slabs in the shared-memory ring
+constexpr int UNITS = 32;     // f32 / bf16: 4-byte K units per slab
+constexpr int A_LD = BM + 4;  // f32 / bf16: words between A's unit rows
+constexpr int IBK = 128;      // int8: K bytes per slab, four k32 steps
 constexpr int TOPK_THREADS = 256;
 constexpr int MAX_SMEM = 227 * 1024;
 
-// A unit at (row offset, unit u) of the row-major (M x K) panel.
-template <int MODE>
-__device__ __forceinline__ typename Unit<MODE>::smem load_a(
-    const typename Unit<MODE>::elem* __restrict__ a, size_t row_off, int u, int K) {
-  if constexpr (MODE == MODE_INT8) {
-    int w = 0;
+// operand element and accumulator of a mode
+template <int MODE> struct Operand;
+template <> struct Operand<MODE_F32> { using elem = float; using acc = float; };
+template <> struct Operand<MODE_BF16> { using elem = __nv_bfloat16; using acc = float; };
+template <> struct Operand<MODE_INT8> { using elem = int8_t; using acc = int; };
+
+// What the product's epilogue reads and writes; Acc is the accumulator.
+template <typename Acc>
+struct TileEpi {
+  const Acc* bias;                          // (M x N), null unless BIAS
+  const float *xt, *xc, *xd;                // X at the rows (M)
+  const float *yt, *yc, *yd;                // Y at the columns (N)
+  const float* pvec;
+  const uint8_t *allowed, *fmask, *tmask;   // (N), (M x N), (M x N), or null
+  int flags;
+  float* scores;                            // (M x N)
+};
+
+// The fused epilogue of a thread's NR x NC cells: rows[i] x cols[j], with
+// sums xy(i, j); cells past M or N are skipped.
+template <int MODE, bool BIAS, int NR, int NC, typename XY>
+__device__ __forceinline__ void tile_epilogue(const TileEpi<typename Operand<MODE>::acc>& e,
+                                              int M, int N,
+                                              const int (&rows)[NR], const int (&cols)[NC],
+                                              XY xy) {
+  const float thr = e.pvec[8];
+  const float inv_scale = e.pvec[9];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = 4 * u + j;
-      const int b = k < K ? (int)(uint8_t)a[row_off + k] : 0;
-      w |= b << (8 * j);
+  for (int i = 0; i < NR; ++i) {
+    const int r = rows[i];
+    if (r >= M) continue;
+    const float xtr = e.xt[r], xcr = e.xc[r], xdr = e.xd[r];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int c = cols[j];
+      if (c >= N) continue;
+      const size_t cell = (size_t)r * N + c;
+      typename Operand<MODE>::acc sum = xy(i, j);
+      if constexpr (BIAS) sum += e.bias[cell];
+      float v;
+      if constexpr (MODE == MODE_INT8) {
+        v = __fmul_rn(__int2float_rn(sum), inv_scale);
+      } else {
+        v = sum;
+      }
+      bool keep = v != 0.0f;
+      if (e.allowed) keep = keep && e.allowed[c] != 0;
+      if (e.fmask) keep = keep && e.fmask[cell] == 0;
+      if (e.tmask) keep = keep && e.tmask[cell] != 0;
+      const float val = splus_val(v, e.flags, e.pvec, xtr, xcr, xdr, e.yt[c], e.yc[c], e.yd[c]);
+      e.scores[cell] = (keep && val >= thr) ? val : -INFINITY;
     }
-    return w;
-  } else {
-    return to_f32(a[row_off + u]);
   }
 }
 
-// A unit at (unit u, column c) of the row-major (K x N) tile.
-template <int MODE>
-__device__ __forceinline__ typename Unit<MODE>::smem load_d(
-    const typename Unit<MODE>::elem* __restrict__ d, int u, int c, int K, int N) {
-  if constexpr (MODE == MODE_INT8) {
-    int w = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = 4 * u + j;
-      const int b = k < K ? (int)(uint8_t)d[(size_t)k * N + c] : 0;
-      w |= b << (8 * j);
-    }
-    return w;
+// V bytes from global to shared memory: cp.async for 16 (L2 only) and 4
+// bytes, zero-filled and nothing read when !full; a plain load and store
+// below 4 (2: one bf16, 1: one int8), which the barrier before the slab's
+// use makes visible all the same.
+template <int V>
+__device__ __forceinline__ void copy_v(void* dst, const void* src, bool full) {
+  if constexpr (V == 16) {
+    cp_async16(dst, src, full);
+  } else if constexpr (V == 4) {
+    cp_async4(dst, src, full);
+  } else if constexpr (V == 2) {
+    *static_cast<uint16_t*>(dst) = full ? *static_cast<const uint16_t*>(src) : 0;
   } else {
-    return to_f32(d[(size_t)u * N + c]);
+    static_assert(V == 1, "copies are 16, 4, 2 or 1 bytes");
+    *static_cast<uint8_t*>(dst) = full ? *static_cast<const uint8_t*>(src) : 0;
   }
 }
+
+// ---------------------------------------------------------------------------
+// f32 and bf16: ring-fed SIMT
+// ---------------------------------------------------------------------------
 
 // the row (or column) of micro-tile entry i: two 4-wide strips 64 apart
 __device__ __forceinline__ int strip(int t, int i) {
   return i < 4 ? t * 4 + i : 64 + t * 4 + i - 4;
 }
 
-template <int MODE, bool BIAS>
-__global__ void __launch_bounds__(THREADS) product_kernel(
-    const typename Unit<MODE>::elem* __restrict__ a,
-    const typename Unit<MODE>::elem* __restrict__ d,
-    const typename Unit<MODE>::smem* __restrict__ bias, int M, int K, int N,
-    const float* __restrict__ xt, const float* __restrict__ xc,
-    const float* __restrict__ xd, const float* __restrict__ yt,
-    const float* __restrict__ yc, const float* __restrict__ yd,
-    const float* __restrict__ pvec, const uint8_t* __restrict__ allowed,
-    const uint8_t* __restrict__ fmask, const uint8_t* __restrict__ tmask,
-    int flags, float* __restrict__ scores) {
-  using U = Unit<MODE>;
-  using S = typename U::smem;
-  using V = typename U::vec;
-  using Acc = S;
-  __shared__ __align__(16) S as[BKU][BM + PAD];
-  __shared__ __align__(16) S ds[BKU][BN + PAD];
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
-  const int tid = threadIdx.x;
+// four bf16 widened to f32 (exact: the bf16 bits are the f32's top half)
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// a thread's 8 values of one D slab row: strips t * 4 and 64 + t * 4
+template <typename E>
+__device__ __forceinline__ void load_frag(float (&v)[8], const E* row, int t) {
+  const float4 lo = load4(row + t * 4), hi = load4(row + 64 + t * 4);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+// a thread's 8 A values at k = 4-byte unit row `row`, sub-row q: the unit
+// is one f32, or two bf16 (k even in the low half)
+template <typename E>
+__device__ __forceinline__ void load_a(float (&v)[8], const uint32_t* row, int t, int q) {
+  const uint4 lo = *reinterpret_cast<const uint4*>(row + t * 4);
+  const uint4 hi = *reinterpret_cast<const uint4*>(row + 64 + t * 4);
+  const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if constexpr (sizeof(E) == 4) {
+      v[i] = __uint_as_float(w[i]);
+    } else {
+      v[i] = __uint_as_float(q == 0 ? w[i] << 16 : w[i] & 0xffff0000u);
+    }
+  }
+}
+
+template <typename E>
+constexpr size_t simt_smem() {
+  return (size_t)STAGES * (UNITS * A_LD * 4 + UNITS * (4 / sizeof(E)) * BN * sizeof(E));
+}
+
+template <int MODE, bool BIAS, int V>
+__global__ void __launch_bounds__(THREADS, 2) tile_simt_kernel(
+    const typename Operand<MODE>::elem* __restrict__ a,
+    const typename Operand<MODE>::elem* __restrict__ d, int M, int K, int N,
+    TileEpi<float> e) {
+  using E = typename Operand<MODE>::elem;
+  constexpr int UK = 4 / (int)sizeof(E);          // K rows per unit
+  constexpr int KS = UNITS * UK;                  // K rows per slab
+  constexpr int SA = UNITS * A_LD;                // A words per slab
+  constexpr int SD = KS * BN;                     // D elements per slab
+  constexpr int DV = V < 4 ? (int)sizeof(E) : V;  // D copy bytes
+  constexpr int D_ROW = BN * (int)sizeof(E) / DV; // D copies per slab row
+  constexpr int D_COPIES = KS * D_ROW / THREADS;
+  constexpr int A_COPIES = BM * UNITS / THREADS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* as = reinterpret_cast<uint32_t*>(smem);          // [STAGES][UNITS][A_LD]
+  E* ds = reinterpret_cast<E*>(as + STAGES * SA);            // [STAGES][KS][BN]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int ku = (K + U::K - 1) / U::K;  // K in units
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int n_slabs = (K + KS - 1) / KS;
 
-  Acc acc[8][8];
+  // A copies: unit au of the rows am + 8 i (a warp: 8 units x 4 rows)
+  const int au = (warp & 3) * 8 + (lane & 7);
+  const int am = (warp >> 2) * 4 + (lane >> 3);
+  const E* ag = a + (size_t)(m0 + am) * K + au * UK;
+
+  auto fetch = [&](int s) {
+    if (s < n_slabs) {
+      uint32_t* sa = as + (s % STAGES) * SA + au * A_LD + am;
+      E* sd = ds + (s % STAGES) * SD;
+      const int k = s * KS + au * UK;
+#pragma unroll 16
+      for (int i = 0; i < A_COPIES; ++i) {
+        const bool row_in = m0 + am + 8 * i < M;
+        const E* src = ag + (size_t)(8 * i) * K + s * KS;
+        if constexpr (V >= 4) {
+          const bool full = row_in && k < K;
+          copy_v<4>(sa + 8 * i, full ? src : a, full);
+        } else {  // two bf16 of an unaligned row, each on its own
+          const uint32_t lo = row_in && k < K ? *reinterpret_cast<const uint16_t*>(src) : 0u;
+          const uint32_t hi = row_in && k + 1 < K ? *reinterpret_cast<const uint16_t*>(src + 1) : 0u;
+          sa[8 * i] = lo | (hi << 16);
+        }
+      }
+#pragma unroll 16
+      for (int i = 0; i < D_COPIES; ++i) {
+        const int c = tid + i * THREADS, row = c / D_ROW;
+        const int col = (c % D_ROW) * (DV / (int)sizeof(E));
+        const int gk = s * KS + row;
+        const bool full = gk < K && n0 + col < N;
+        copy_v<DV>(sd + row * BN + col, full ? d + (size_t)gk * N + n0 + col : d, full);
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+
+  float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-  for (int u0 = 0; u0 < ku; u0 += BKU) {
 #pragma unroll
-    for (int i = 0; i < BM * BKU / THREADS; ++i) {
-      const int e = tid + i * THREADS;
-      const int r = e / BKU, u = e % BKU;
-      const int gr = m0 + r, gu = u0 + u;
-      as[u][r] = (gr < M && gu < ku) ? load_a<MODE>(a, (size_t)gr * K, gu, K) : S(0);
-    }
+  for (int s = 0; s < STAGES - 1; ++s) fetch(s);
+  for (int s = 0; s < n_slabs; ++s) {
+    cp_async_wait<STAGES - 2>();  // slab s is in
+    __syncthreads();              // ... for every thread, and slab s - 1 is done with
+    fetch(s + STAGES - 1);        // into slab s - 1's place
+    const uint32_t* sa = as + (s % STAGES) * SA;
+    const E* sd = ds + (s % STAGES) * SD;
+    float av[2][8], bv[2][8];
+    load_a<E>(av[0], sa, ty, 0);
+    load_frag(bv[0], sd, tx);
 #pragma unroll
-    for (int i = 0; i < BN * BKU / THREADS; ++i) {
-      const int e = tid + i * THREADS;
-      const int u = e / BN, c = e % BN;
-      const int gc = n0 + c, gu = u0 + u;
-      ds[u][c] = (gc < N && gu < ku) ? load_d<MODE>(d, gu, gc, K, N) : S(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < BKU; ++u) {
-      // rows ty*4 + {0..3} and 64 + ty*4 + {0..3}; the same split for columns
-      const V a0 = *reinterpret_cast<const V*>(&as[u][ty * 4]);
-      const V a1 = *reinterpret_cast<const V*>(&as[u][64 + ty * 4]);
-      const V b0 = *reinterpret_cast<const V*>(&ds[u][tx * 4]);
-      const V b1 = *reinterpret_cast<const V*>(&ds[u][64 + tx * 4]);
-      const S av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const S bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    for (int kk = 0; kk < KS; ++kk) {
+      if (kk + 1 < KS) {  // the next row's values load while this row's FMAs run
+        load_a<E>(av[(kk + 1) & 1], sa + ((kk + 1) / UK) * A_LD, ty, (kk + 1) % UK);
+        load_frag(bv[(kk + 1) & 1], sd + (kk + 1) * BN, tx);
+      }
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = mac(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[kk & 1][i], bv[kk & 1][j], acc[i][j]);
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
 
-  const float thr = pvec[8];
-  const float inv_scale = pvec[9];
+  int rows[8], cols[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int r = m0 + strip(ty, i);
-    if (r >= M) continue;
-    const float xtr = xt[r], xcr = xc[r], xdr = xd[r];
+    rows[i] = m0 + strip(ty, i);
+    cols[i] = n0 + strip(tx, i);
+  }
+  tile_epilogue<MODE, BIAS>(e, M, N, rows, cols, [&](int i, int j) { return acc[i][j]; });
+}
+
+// ---------------------------------------------------------------------------
+// int8: mma.sync m16n8k32 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr size_t S8_SMEM = (size_t)STAGES * IBK * (BM + S8_BN);
+
+// Byte offset of 16-byte chunk `ch` of row `r` of A's slab (rows of IBK =
+// 128 bytes): the chunk index is XORed with the row's low 3 bits, so the
+// 8 rows of an ldmatrix phase fall in 8 distinct chunks, 32 banks.
+__device__ __forceinline__ int a_swz(int r, int ch) { return r * IBK + ((ch ^ (r & 7)) << 4); }
+
+// Byte offset of 16-byte chunk `ch` of row `r` of D's slab (rows of S8_BN =
+// 256 bytes): the chunk index is XORed with twice bits 2..3 of the row, so a
+// warp's block reads (rows 4 tig + q for tig 0..3, words of two
+// neighbouring chunks for g 0..7) fall in 8 distinct chunks, 32 banks.
+__device__ __forceinline__ int d_swz(int r, int ch) {
+  return r * S8_BN + ((ch ^ (((r >> 2) & 3) << 1)) << 4);
+}
+
+// rows r0 .. r0 + 3 of 32-bit word `word` (four bytes of n) of D's slab,
+// transposed: w[j] holds the four k bytes of column 4 word + j
+__device__ __forceinline__ void d_block4x4(uint32_t (&w)[4], const unsigned char* s, int r0,
+                                           int word) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = n0 + strip(tx, j);
-      if (c >= N) continue;
-      const size_t cell = (size_t)r * N + c;
-      Acc sum = acc[i][j];
-      if constexpr (BIAS) sum += bias[cell];
-      float xy;
-      if constexpr (MODE == MODE_INT8) {
-        xy = __fmul_rn(__int2float_rn(sum), inv_scale);
-      } else {
-        xy = sum;
+  for (int q = 0; q < 4; ++q)
+    w[q] = *reinterpret_cast<const uint32_t*>(s + d_swz(r0 + q, word >> 2) + (word & 3) * 4);
+  transpose4x4(w);
+}
+
+// One 128 x 256 block: 8 warps of 64 x 64 (4 m16 x 8 n8 tiles each), 128
+// accumulators a thread, so one block per SM.
+template <bool BIAS, int V>
+__global__ void __launch_bounds__(THREADS, 1) tile_s8_kernel(
+    const int8_t* __restrict__ a, const int8_t* __restrict__ d, int M, int K, int N,
+    TileEpi<int> e) {
+  constexpr int SA = IBK * BM, SD = IBK * S8_BN;  // bytes per operand and slab
+  constexpr int A_ROW = IBK / V, D_ROW = S8_BN / V;  // copies per slab row
+  constexpr int A_COPIES = BM * A_ROW / THREADS, D_COPIES = IBK * D_ROW / THREADS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* as = smem;                // [STAGES][BM][IBK], swizzled rows
+  unsigned char* ds = smem + STAGES * SA;  // [STAGES][IBK][S8_BN], swizzled rows
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 64;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * S8_BN;
+  const int8_t* ab = a + (size_t)m0 * K;
+  const int8_t* db = d + n0;
+  const int n_slabs = (K + IBK - 1) / IBK;
+
+  auto fetch = [&](int s) {
+    if (s < n_slabs) {
+      unsigned char* sa = as + (s % STAGES) * SA;
+      unsigned char* sd = ds + (s % STAGES) * SD;
+#pragma unroll 16
+      for (int i = 0; i < A_COPIES; ++i) {
+        const int c = tid + i * THREADS, row = c / A_ROW, off = (c % A_ROW) * V;
+        const int k = s * IBK + off;
+        const bool full = m0 + row < M && k < K;
+        copy_v<V>(sa + a_swz(row, off >> 4) + (off & 15),
+                  full ? ab + (size_t)row * K + k : a, full);
       }
-      bool keep = xy != 0.0f;
-      if (allowed) keep = keep && allowed[c] != 0;
-      if (fmask) keep = keep && fmask[cell] == 0;
-      if (tmask) keep = keep && tmask[cell] != 0;
-      const float val = splus_val(xy, flags, pvec, xtr, xcr, xdr, yt[c], yc[c], yd[c]);
-      scores[cell] = (keep && val >= thr) ? val : -INFINITY;
+#pragma unroll 16
+      for (int i = 0; i < D_COPIES; ++i) {
+        const int c = tid + i * THREADS, row = c / D_ROW, off = (c % D_ROW) * V;
+        const int k = s * IBK + row;
+        const bool full = k < K && n0 + off < N;
+        copy_v<V>(sd + d_swz(row, off >> 4) + (off & 15),
+                  full ? db + (size_t)k * N + off : d, full);
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+
+  int acc[4][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) fetch(s);
+  for (int s = 0; s < n_slabs; ++s) {
+    cp_async_wait<STAGES - 2>();  // slab s is in
+    __syncthreads();              // ... for every thread, and slab s - 1 is done with
+    fetch(s + STAGES - 1);        // into slab s - 1's place
+    const unsigned char* sa = as + (s % STAGES) * SA;
+    const unsigned char* sd = ds + (s % STAGES) * SD;
+#pragma unroll
+    for (int ks = 0; ks < IBK; ks += 32) {
+      // A: ldmatrix x4 of m-tile mi, matrices (rows 0-7 | 8-15) x (k bytes
+      // ks .. +15 | ks + 16 .. +31): lane l gives row l & 15, chunk
+      // ks / 16 + l / 16, and receives mma.sync's A fragment as it is
+      uint32_t af[4][4], bf[8][2];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldmatrix_x4(af[mi], sa + a_swz(wm + 16 * mi + (lane & 15), ks / 16 + (lane >> 4)));
+      // B: column g of n-tile 4 h + j is column 32 h + 4 g + j of the warp's 64
+#pragma unroll
+      for (int kh = 0; kh < 2; ++kh) {  // k = ks + 16 kh + 4 tig .. + 3
+        const int r0 = ks + 16 * kh + 4 * tig;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t w[4];
+          d_block4x4(w, sd, r0, wn / 4 + 8 * h + g);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) bf[4 * h + j][kh] = w[j];
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
     }
   }
+  cp_async_wait<0>();
+
+  // C row g + 8 hh of m-tile mi is row wm + 16 mi + 8 hh + g; C column
+  // 2 tig + jj of n-tile ni is column wn + 32 (ni / 4) + 4 (2 tig + jj) +
+  // ni % 4
+  int rows[8], cols[16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) rows[i] = m0 + wm + 16 * (i >> 1) + 8 * (i & 1) + g;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    cols[j] = n0 + wn + 32 * (j >> 3) + 4 * (2 * tig + (j & 1)) + ((j >> 1) & 3);
+  tile_epilogue<MODE_INT8, BIAS>(e, M, N, rows, cols, [&](int i, int j) {
+    return acc[i >> 1][j >> 1][2 * (i & 1) + (j & 1)];
+  });
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+// The copy width of both operands: 16 bytes when the bases and the row
+// strides (K and N elements of `esz` bytes) are 16-byte aligned, else 4 when
+// they are 4-byte aligned, else one element.
+inline int copy_width(const void* a, const void* d, int K, int N, int esz) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(d) |
+                         (uintptr_t)K * esz | (uintptr_t)N * esz;
+  return bits % 16 == 0 ? 16 : bits % 4 == 0 ? 4 : esz;
+}
+
+template <int MODE, bool BIAS, int V>
+void* kernel_for(size_t* smem) {
+  if constexpr (MODE == MODE_INT8) {
+    *smem = S8_SMEM;
+    return reinterpret_cast<void*>(tile_s8_kernel<BIAS, V>);
+  } else {
+    *smem = simt_smem<typename Operand<MODE>::elem>();
+    return reinterpret_cast<void*>(tile_simt_kernel<MODE, BIAS, V>);
+  }
+}
+
+// The product kernel for a runtime mode (0 = f32, 1 = bf16, 2 = int8) and
+// copy width, with its dynamic shared memory; null for a pair that no
+// launch takes.
+template <bool BIAS>
+void* select_product(int mode, int v, size_t* smem) {
+  switch (mode * 32 + v) {
+    case MODE_F32 * 32 + 16: return kernel_for<MODE_F32, BIAS, 16>(smem);
+    case MODE_F32 * 32 + 4: return kernel_for<MODE_F32, BIAS, 4>(smem);
+    case MODE_BF16 * 32 + 16: return kernel_for<MODE_BF16, BIAS, 16>(smem);
+    case MODE_BF16 * 32 + 4: return kernel_for<MODE_BF16, BIAS, 4>(smem);
+    case MODE_BF16 * 32 + 2: return kernel_for<MODE_BF16, BIAS, 2>(smem);
+    case MODE_INT8 * 32 + 16: return kernel_for<MODE_INT8, BIAS, 16>(smem);
+    case MODE_INT8 * 32 + 4: return kernel_for<MODE_INT8, BIAS, 4>(smem);
+    case MODE_INT8 * 32 + 1: return kernel_for<MODE_INT8, BIAS, 1>(smem);
+    default: return nullptr;
+  }
+}
+
+// The product launch for a runtime mode; the mask pointers may be null, the
+// bias must be null exactly when !BIAS.
+template <bool BIAS>
+cudaError_t product_any(int mode, const void* a, const void* d, const void* bias, int M,
+                        int K, int N, const void* xt, const void* xc, const void* xd,
+                        const void* yt, const void* yc, const void* yd, const void* pvec,
+                        const void* allowed, const void* fmask, const void* tmask, int flags,
+                        void* scores, cudaStream_t s) {
+  if (M <= 0 || N <= 0 || K < 0 || (bias != nullptr) != BIAS) return cudaErrorInvalidValue;
+  const int esz = mode == MODE_F32 ? 4 : mode == MODE_BF16 ? 2 : 1;
+  size_t smem = 0;
+  void* kern = select_product<BIAS>(mode, copy_width(a, d, K, N, esz), &smem);
+  if (!kern) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto u8 = [](const void* p) { return static_cast<const uint8_t*>(p); };
+  const int bn = mode == MODE_INT8 ? S8_BN : BN;
+  const dim3 grid((M + BM - 1) / BM, (N + bn - 1) / bn);
+  if (mode == MODE_INT8) {
+    TileEpi<int> e{static_cast<const int*>(bias), f(xt), f(xc), f(xd), f(yt), f(yc), f(yd),
+                   f(pvec), u8(allowed), u8(fmask), u8(tmask), flags,
+                   static_cast<float*>(scores)};
+    void* args[] = {&a, &d, &M, &K, &N, &e};
+    err = cudaLaunchKernel(kern, grid, THREADS, args, smem, s);
+  } else {
+    TileEpi<float> e{f(bias), f(xt), f(xc), f(xd), f(yt), f(yc), f(yd), f(pvec),
+                     u8(allowed), u8(fmask), u8(tmask), flags, static_cast<float*>(scores)};
+    void* args[] = {&a, &d, &M, &K, &N, &e};
+    err = cudaLaunchKernel(kern, grid, THREADS, args, smem, s);
+  }
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// registers, local bytes (spills), dynamic shared bytes and resident blocks
+// per SM of the product kernel of a runtime mode, for 16-byte aligned
+// operands (the main path's)
+template <bool BIAS>
+cudaError_t product_attrs(int mode, int* out) {
+  size_t smem = 0;
+  void* kern = select_product<BIAS>(mode, 16, &smem);
+  if (!kern) return cudaErrorInvalidValue;
+  cudaFuncAttributes at;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&at, kern);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, THREADS, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = at.numRegs;
+  out[1] = (int)at.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  return cudaSuccess;
 }
 
 // One block per (row, tile): blockIdx.x is the row, blockIdx.y the tile.
@@ -268,52 +618,6 @@ __global__ void __launch_bounds__(TOPK_THREADS) topk_kernel(
         oi[(size_t)pos * M + row] = bi[j];
       }
     }
-  }
-}
-
-template <int MODE, bool BIAS>
-cudaError_t launch_product(const void* a, const void* d, const void* bias, int M,
-                           int K, int N, const void* xt, const void* xc,
-                           const void* xd, const void* yt, const void* yc,
-                           const void* yd, const void* pvec, const void* allowed,
-                           const void* fmask, const void* tmask, int flags,
-                           void* scores, cudaStream_t stream) {
-  using E = typename Unit<MODE>::elem;
-  using S = typename Unit<MODE>::smem;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  product_kernel<MODE, BIAS><<<grid, THREADS, 0, stream>>>(
-      static_cast<const E*>(a), static_cast<const E*>(d), static_cast<const S*>(bias),
-      M, K, N, static_cast<const float*>(xt), static_cast<const float*>(xc),
-      static_cast<const float*>(xd), static_cast<const float*>(yt),
-      static_cast<const float*>(yc), static_cast<const float*>(yd),
-      static_cast<const float*>(pvec), static_cast<const uint8_t*>(allowed),
-      static_cast<const uint8_t*>(fmask), static_cast<const uint8_t*>(tmask),
-      flags, static_cast<float*>(scores));
-  return cudaGetLastError();
-}
-
-// The product launch for a runtime mode (0 = f32, 1 = bf16, 2 = int8); the
-// mask pointers may be null, the bias must be null exactly when !BIAS.
-template <bool BIAS>
-cudaError_t product_any(int mode, const void* a, const void* d, const void* bias,
-                               int M, int K, int N, const void* xt, const void* xc,
-                               const void* xd, const void* yt, const void* yc,
-                               const void* yd, const void* pvec, const void* allowed,
-                               const void* fmask, const void* tmask, int flags,
-                               void* scores, cudaStream_t s) {
-  if (M <= 0 || N <= 0 || K < 0 || (bias != nullptr) != BIAS) return cudaErrorInvalidValue;
-  switch (mode) {
-    case MODE_F32:
-      return launch_product<MODE_F32, BIAS>(a, d, bias, M, K, N, xt, xc, xd, yt, yc, yd,
-                                            pvec, allowed, fmask, tmask, flags, scores, s);
-    case MODE_BF16:
-      return launch_product<MODE_BF16, BIAS>(a, d, bias, M, K, N, xt, xc, xd, yt, yc, yd,
-                                             pvec, allowed, fmask, tmask, flags, scores, s);
-    case MODE_INT8:
-      return launch_product<MODE_INT8, BIAS>(a, d, bias, M, K, N, xt, xc, xd, yt, yc, yd,
-                                             pvec, allowed, fmask, tmask, flags, scores, s);
-    default:
-      return cudaErrorInvalidValue;
   }
 }
 

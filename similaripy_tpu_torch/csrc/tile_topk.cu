@@ -18,14 +18,15 @@
 // What bounds it on an H100 SXM: the product. At the main path's shapes
 // (trp = 1,024, K ~ 200,960) it does ~400 operations per byte of A and D,
 // so it is bound by operations: 67 TFLOP/s of f32 FMA outside the tensor
-// cores for f32, 989 TFLOP/s of bf16 and 1,979 TOP/s of int8 on the tensor
-// cores. The D tile streams from device memory at 3.35 TB/s.
+// cores for f32 and bf16 (bf16 operands, f32 products), 1,979 TOP/s of int8
+// on the tensor cores. The D tile streams from device memory at 3.35 TB/s.
 //
-// The first design is simple and correct, and gives speed away. Both
-// launches live in tile_kernels.cuh, shared with K3 (panel_topk.cu):
-//   1. product_kernel: a shared-memory-tiled SIMT product with the epilogue
-//      and masks fused; the score (or -inf) goes to a (trp x tc) f32
-//      scratch that the wrapper allocates.
+// Two launches, both in tile_kernels.cuh, shared with K3 (panel_topk.cu):
+//   1. the product with the epilogue and masks fused, its operands fed by a
+//      3-slab cp.async ring: int8 on the tensor cores (mma.sync m16n8k32
+//      s8, 128 x 256 blocks), f32 and bf16 on SIMT FMA (128 x 128 blocks,
+//      one in-order fmaf chain per output); the score (or -inf) goes to a
+//      (trp x tc) f32 scratch that the wrapper allocates.
 //   2. topk_kernel: one block per row. It keeps the scores above the carry's
 //      kth, sorts them in shared memory and merges them with the carry.
 //
@@ -53,6 +54,16 @@ int tile_topk_rows(const void* scores, int M, int N, int k_pad, const void* pvec
                    const void* cv, const void* ci, void* ov, void* oi, void* stream) {
   return (int)topk_any(scores, M, N, N, 1, k_pad, pvec, cv, ci, ov, oi,
                        static_cast<cudaStream_t>(stream));
+}
+
+int panel_product_attrs(int mode, int* out);  // panel_topk.cu: the BIAS kernels
+
+// The product kernel of `mode` (with the bias: K3's): out[0] registers a
+// thread, out[1] local memory bytes a thread (spills), out[2] shared memory
+// bytes a block, out[3] resident blocks per SM.
+int tile_product_attrs(int mode, int bias, int* out) {
+  if (bias) return panel_product_attrs(mode, out);
+  return (int)product_attrs<false>(mode, out);
 }
 
 const char* tile_error_string(int err) {

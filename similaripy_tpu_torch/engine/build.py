@@ -97,6 +97,8 @@ def load() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.tile_product.argtypes = [i, p, p, i, i, i, p, p, p, p, p, p, p, p, p, p, i, p, p]
         lib.tile_product.restype = i
+        lib.tile_product_attrs.argtypes = [i, i, p]
+        lib.tile_product_attrs.restype = i
         lib.tile_topk_rows.argtypes = [p, i, i, i, p, p, p, p, p, p]
         lib.tile_topk_rows.restype = i
         lib.sym_product.argtypes = [i, p, p, i, i, i, p, p, i, p, p, p]

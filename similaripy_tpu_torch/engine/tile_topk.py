@@ -26,6 +26,7 @@ arbitrary, as in the reference; the executor drops those slots.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 
 import torch
 
@@ -293,3 +294,16 @@ def _launch(m1_dense, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext, allowed,
         )
     kernel_launches += 1
     return vals, idx
+
+
+def product_attrs(dtype, bias: bool = False) -> dict:
+    """Registers and local (spill) bytes a thread, shared memory a block and
+    resident blocks per SM of the product kernel that `dtype` (float32,
+    bfloat16 or int8) runs for 16-byte aligned operands; `bias` asks for
+    K3's kernel with the hot-prefix bias. Needs a card."""
+    from .build import check, load
+
+    out = (ctypes.c_int * 4)()
+    check(load().tile_product_attrs(_MODES[dtype], int(bias), out),
+          f"tile_product_attrs({dtype}, bias={bias})")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), out))

@@ -77,6 +77,7 @@ def test_benchmarks_import_with_jax_blocked():
         sys.modules["jax"] = None
         sys.modules["similaripy_tpu"] = None
         sys.modules["benchmarks"] = None
+        import similaripy_tpu_torch.benchmarks.compare_checkouts
         import similaripy_tpu_torch.benchmarks.kernel_check as kc
         import similaripy_tpu_torch.benchmarks.micro_int4
         import similaripy_tpu_torch.benchmarks.micro_tile_kernel

@@ -14,6 +14,7 @@ import torch
 
 from similaripy_tpu_torch.benchmarks import probes
 from similaripy_tpu_torch.engine import gather, panel_topk, scatter, sym_topk, tile_topk
+from torch_k1_cases import CARD_CASES as K1_CARD_CASES
 from torch_k1_cases import CASES, assert_same, make_case, run_port
 from torch_k2_cases import CARD_CASES as K2_CARD_CASES
 from torch_k2_cases import CASES as K2_CASES
@@ -48,6 +49,22 @@ def test_kernel_matches_plain(mode, carry_on, mask):
     tile_topk.reset_counts()
     got = run_port(tile_topk.fused_tile_topk, mode, *case, device="cuda")
     assert tile_topk.kernel_launches == 1
+    ref = _plain_on_card(mode, *case)
+    assert_same(mode, got, ref, case[6])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,carry_on,mask,label", K1_CARD_CASES,
+                         ids=["-".join(map(str, c)) for c in K1_CARD_CASES])
+def test_kernel_matches_plain_card_shapes(mode, carry_on, mask, label):
+    """K1 at the edges of its product's copy ring and blocks: K shorter than
+    the ring, M = 256 with K ending mid-slab and rows not 16-byte aligned,
+    the widest tile, full-range int8."""
+    _need_card()
+    case = make_case(mode, carry_on, mask, _plain_on_card, label)
+    tile_topk.reset_counts()
+    got = run_port(tile_topk.fused_tile_topk, mode, *case, device="cuda")
+    assert tile_topk.kernel_launches == 1 and tile_topk.plain_calls == 0
     ref = _plain_on_card(mode, *case)
     assert_same(mode, got, ref, case[6])
 

@@ -20,7 +20,8 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from similaripy_tpu_torch.benchmarks import micro_int4, micro_tile_kernel, probes, tlhs_transpose_cost
+from similaripy_tpu_torch.benchmarks import (compare_checkouts, micro_int4, micro_tile_kernel,
+                                             probes, tlhs_transpose_cost)
 from torch_probe_cases import (P1_DTYPES, P1_F32_RANDN_SHAPES, P1_SHAPES, P2_CASES, P2_MODES,
                                f32_scaled_errors, f32_tolerance, p1_inputs, p1_randn, p2_inputs,
                                p2_wrap_inputs, shape_id)
@@ -253,3 +254,15 @@ def test_tlhs_transpose_cost_needs_a_card(capsys):
     assert tlhs_transpose_cost.main([]) == 1
     assert "needs a CUDA card" in capsys.readouterr().err
     assert tlhs_transpose_cost.SHAPE == (200_960, 4096, 4096)
+
+
+def test_compare_checkouts_needs_a_card(capsys):
+    """The two-checkout comparison runs only on a card: without one it
+    exits 1 before it starts a turn; its turn and output programs are
+    valid Python."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert compare_checkouts.main([".", "."]) == 1
+    assert "needs one card" in capsys.readouterr().err
+    for code in (compare_checkouts._TURN, compare_checkouts._OUTPUTS):
+        compile(code, "<turn>", "exec")

@@ -25,6 +25,24 @@ FLAG_SETS = [
 # kernel's block constraints); the last has k_pad > tc
 SHAPES = [(16, 256, 200, 8), (24, 384, 130, 40), (8, 128, 96, 104)]
 TORCH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+# card only, the edges of the product's copy ring (3 slabs of 32 f32 / 64
+# bf16 K rows, of 128 int8 K bytes) and of its blocks (128 rows; 128
+# columns, 256 for int8), as (label, (trp, u, tc, k_pad)): K shorter than
+# the ring and than one slab in every mode, with fewer rows than a block;
+# M = 256 exactly with K ending mid-ring and mid-slab, whose int8 A rows are
+# 8 bytes off 16-byte alignment (u % 16 = 8) and whose D rows are not even
+# 4-byte aligned (tc 250), so each mode takes its narrow copies; and the
+# executor's widest tile (tc 8,192, KERNEL_MAX_TC)
+CARD_SHAPES = [("ring-short", (40, 40, 96, 16)), ("m256-mid-ring", (256, 1000, 250, 40)),
+               ("widest-tc", (136, 384, 8192, 104))]
+CARD_CASES = [(mode, carry_on, mask, label)
+              for (label, _), (carry_on, mask) in zip(
+                  CARD_SHAPES, ((True, "filter"), (False, "allowed"), (True, "target")))
+              for mode in MODES]
+# int8 over all of [-128, 127] (none zero): a u8 or a selector slip in the
+# product changes the sums; K 4,096 keeps every int32 sum exact
+CARD_CASES += [("int8", True, "none", "full-range")]
+CARD_SHAPES.append(("full-range", (128, 4096, 512, 64)))
 
 # int8 products are exact everywhere, so int8 values are bit-equal -- except
 # through `pow`, which each implementation takes from its own math library
@@ -32,10 +50,16 @@ TORCH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8
 POW_RTOL = 2.0**-22
 
 
-def operands(rng, mode, trp, u, tc):
+def operands(rng, mode, trp, u, tc, full_range=False):
     """A panel, a tile, and the vectors an S-Plus call derives from them
-    (squared norms, their square roots, positive depop weights)."""
-    if mode == "int8":
+    (squared norms, their square roots, positive depop weights);
+    full_range: int8 values drawn from all of [-128, 127], none zero."""
+    if mode == "int8" and full_range:
+        a = rng.integers(-128, 127, (trp, u)).astype(np.int8)
+        a[a >= 0] += 1
+        d = rng.integers(-128, 127, (u, tc)).astype(np.int8)
+        d[d >= 0] += 1
+    elif mode == "int8":
         a = (rng.integers(-6, 7, (trp, u)) * (rng.random((trp, u)) < 0.3)).astype(np.int8)
         d = (rng.integers(-6, 7, (u, tc)) * (rng.random((u, tc)) < 0.3)).astype(np.int8)
     else:
@@ -51,17 +75,28 @@ def operands(rng, mode, trp, u, tc):
     return a, d, [xt, np.sqrt(xt), xd, yt, np.sqrt(yt), yd]
 
 
-def make_case(mode, carry_on, mask, carry_fn):
+def make_case(mode, carry_on, mask, carry_fn, label=None):
     """Inputs for one call, as numpy: operands, vectors, pvec, masks and a
-    real carry, `carry_fn`'s top-k of another tile of ids."""
+    real carry, `carry_fn`'s top-k of another tile of ids. `label` names a
+    card case (CARD_SHAPES)."""
     mi, ki = MODES.index(mode), MASKS.index(mask)
-    rng = np.random.default_rng(10 * mi + 2 * ki + carry_on)
-    trp, u, tc, k_pad = SHAPES[(mi + ki + carry_on) % len(SHAPES)]
+    full_range = label == "full-range"
+    if label is None:
+        rng = np.random.default_rng(10 * mi + 2 * ki + carry_on)
+        trp, u, tc, k_pad = SHAPES[(mi + ki + carry_on) % len(SHAPES)]
+    else:
+        li = [name for name, _ in CARD_SHAPES].index(label)
+        rng = np.random.default_rng(1000 + 10 * li + mi)
+        trp, u, tc, k_pad = dict(CARD_SHAPES)[label]
     flags, p = FLAG_SETS[(ki + 2 * carry_on + mi) % len(FLAG_SETS)]
-    a, d, vecs = operands(rng, mode, trp, u, tc)
+    a, d, vecs = operands(rng, mode, trp, u, tc, full_range)
     pv = np.zeros(16, np.float32)
     pv[:9] = p
     pv[9] = 0.25 if mode == "int8" else 1.0
+    if label is not None and mode == "int8":  # the norms of the scaled-back values
+        for i in (0, 3):
+            vecs[i] = vecs[i] * pv[9]
+            vecs[i + 1] = np.sqrt(vecs[i])
     pv[10] = 3 * tc
     masks = {}
     if mask == "allowed":
@@ -72,7 +107,7 @@ def make_case(mode, carry_on, mask, carry_fn):
         masks["tmask"] = (rng.random((trp, tc)) < 0.4).astype(np.uint8)
     carry = None
     if carry_on:
-        _, d2, vecs2 = operands(rng, mode, trp, u, tc)
+        _, d2, vecs2 = operands(rng, mode, trp, u, tc, full_range)
         pv0 = pv.copy()
         pv0[10] = 0
         carry = carry_fn(mode, a, d2, vecs[:3] + vecs2[3:], pv0, masks, None, flags, k_pad)

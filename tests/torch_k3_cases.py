@@ -27,6 +27,21 @@ CASES = [(mode, bias_on, mask) for mode in MODES for bias_on in (False, True)
 CARD_SHAPES = [(2304 + 40, 256, 5, 100), (768, 2048, 2, 104), (4608, 4096, 1, 16)]
 CARD_CASES = [(mode, True, mask, si) for si in range(len(CARD_SHAPES))
               for mode, mask in zip(MODES, ("allowed", "filter", "target"))]
+# card only, the edges of the product's copy ring (3 slabs of 32 f32 / 64
+# bf16 K rows, of 128 int8 K bytes): K shorter than the ring and than one
+# slab (K 40, without the bias, so K1's product); K ending mid-ring and
+# mid-slab (K 1,000) with int8 A rows 8 bytes off 16-byte alignment and an
+# odd group width (tc 135 x 3), so that each mode takes its narrowest copies
+CARD_SHAPES += [(40, 128, 2, 8), (1000, 135, 3, 24)]
+CARD_CASES += [(mode, bias_on, mask, si)
+               for si, bias_on in ((3, False), (4, True))
+               for mode, mask in zip(MODES, ("filter", "target", "allowed"))]
+# int8 over all of [-128, 127] (none zero) with an int32 bias near its
+# extremes: |bias| within 1,000 of 2**31 - 1 - K * 128**2, the largest
+# that no sum can carry past int32
+CARD_FULL_RANGE = len(CARD_SHAPES)
+CARD_SHAPES.append((768, 256, 2, 40))
+CARD_CASES.append(("int8", True, "none", CARD_FULL_RANGE))
 
 
 def case_id(case) -> str:
@@ -43,9 +58,10 @@ def make_case(mode, bias_on, mask, card_shape=None):
     else:
         K, tc, n_tiles, k_pad = CARD_SHAPES[card_shape]
     cg = tc * n_tiles
+    full_range = card_shape is not None and card_shape == CARD_FULL_RANGE
     flags, p = FLAG_SETS[(ki + 2 * bias_on + mi) % len(FLAG_SETS)]
-    a, d, vecs = operands(rng, mode, TM, K, cg)
-    if mode == "int8":  # mostly positive products, so thresholds keep some
+    a, d, vecs = operands(rng, mode, TM, K, cg, full_range)
+    if mode == "int8" and not full_range:  # mostly positive products, so thresholds keep some
         a, d = np.abs(a), np.abs(d)
     pv = np.zeros(16, np.float32)
     pv[:9] = p
@@ -54,7 +70,11 @@ def make_case(mode, bias_on, mask, card_shape=None):
     bias = None
     if bias_on:
         live = rng.random((TM, cg)) < 0.4
-        if mode == "int8":
+        if full_range:
+            top = 2**31 - 1 - K * 128**2
+            bias = rng.integers(top - 1000, top + 1, (TM, cg)) * rng.choice([-1, 1], (TM, cg))
+            bias = bias.astype(np.int32)
+        elif mode == "int8":
             bias = (rng.integers(-300, 301, (TM, cg)) * live).astype(np.int32)
         else:
             bias = (rng.random((TM, cg)) * 20 * live).astype(np.float32)
