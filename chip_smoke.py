@@ -42,8 +42,15 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
              (200,948 users x 84,432 items), driven through the public calls
              with the launch counts set to 0 just before and read just after:
              bm25 -> cosine(k=100) over ALL items (the symmetric route, K2 and
-             K5) -> recommend(k=10) for 1,024 users (the general route, K1);
-             cosine(k=100) for 1,024 items (the general route, K1); the exact
+             K5) -> recommend(k=10) for 1,024 users (the general route, K1 and
+             K5;
+             the exclude-seen fold's gate refuses it, as BM25 weights some
+             ratings below 0); recommend(urm, W, k=10) on the raw ratings for
+             the same users with the fold on, off, on, off (last_plan shows
+             the fold's M, then none; the results are equal: nnz per row,
+             check_sum rtol 1e-5, the largest value difference printed;
+             splus.TIMING's laps of each turn);
+             cosine(k=100) for 1,024 items (the general route, K1 and K5); the exact
              int8 cosine on the raw ratings over all items and for the 1,024
              items; asymmetric_cosine(alpha=0.3) over the 16,384 most popular
              items. Each call took its route, launched its kernels and no
@@ -57,13 +64,28 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
              matches the general route on all its rows, and so does the same
              call planned with anchor groups of three tiles; recommend never
              returns a seen item. Then three calls on the compaction route
-             (K3, K4, K5) and on the general route (K1), each run on, off,
+             (K3, K4, K5) and on the general route (K1, K5), each run on, off,
              on, off: cosine(k=100) for 8,192 items, f32 and exact int8, and
              dot_product(bm25(urm), W.T, k=10) for the 1,024 users with the
              8,192 items excluded; both routes give the same rows (nnz,
              check_sum rtol 1e-5; int8 equal values), K3 and K4 launch as
              often as the plan needs, 64 rows of the f32 call match the
              float64 oracle; both routes' walls and the plans are printed
+  3b mesh    multi-device execution (mesh=) over torch.distributed, the
+             stores in a temporary directory: (a) this process as one rank
+             over NCCL, mesh (1, 1): the f32 cosine over all items (sharded
+             symmetric route, K2 and K5), recommend(urm, W) for the 1,024
+             users with the fold and the cosine for the 1,024 items (grouped
+             sharded route, K1 and K5), each equal to phase main's single-device
+             result (nnz per row, check_sum rtol 1e-5, and the same column
+             id at every entry clear of ties); (b) two ranks over
+             gloo sharing the card (torch.multiprocessing.spawn, join=True),
+             meshes (1, 2) and (2, 1): the exact int8 cosine over all items
+             and recommend; both ranks return the same CSR, equal to the
+             single device's (int8 values identical, ids as in (a)), each rank's K2
+             launches equal sym_sharded.schedule_anatomy's share for the
+             plan the ranks chose, no rank runs a plain version; each
+             call's wall and each rank's launches are printed
   4 times    at the main path's shapes: K2 on a live off-diagonal block and a
              diagonal block (f32), a live block in bf16 (the f32 build's
              geometry) and in int8, K5 on one inner tile, K1 on a 1,024-item cosine
@@ -449,6 +471,21 @@ def _same(name, got, ref, exact):
                                    err_msg=f"{name}: check_sum vs plain")
 
 
+def _check_plan_launches(name, route, launches, plan):
+    """A call launched its plan's kernels (on a mesh, this rank's share):
+    the symmetric routes their K2 blocks and K5 scatters (schedule_anatomy),
+    the grouped routes K1 once per (panel, own tile) and K5 once per
+    group."""
+    if route in ("symmetric", "sym_sharded"):
+        expect = {"sym_topk": plan["blocks"], "scatter": plan["scatters"]}
+    elif route in ("general", "sharded"):
+        expect = {"tile_topk": plan["k1_launches"], "scatter": plan["k5_launches"]}
+    else:
+        return
+    if any(launches[k] != v for k, v in expect.items()):
+        raise AssertionError(f"{name}: launches {launches}, the plan counts {expect}")
+
+
 def _make_call(torch, counters, ex, dev, calls):
     """The main path's call driver: counts set to 0 just before a call and
     read just after; the route taken, its kernels launched (K3 and K4 as
@@ -466,10 +503,12 @@ def _make_call(torch, counters, ex, dev, calls):
         plain = {k: c.plain_calls for k, c in counters.items()}
         if ex.last_route != route:
             raise AssertionError(f"{name}: took the {ex.last_route} route, not {route}")
-        used = {"symmetric": ("sym_topk", "scatter"), "general": ("tile_topk",),
-                "compact": ("panel_topk", "scatter")}[route]
+        # a mesh rank launches its plan's share (checked below), which may be none
+        used = {"symmetric": ("sym_topk", "scatter"), "general": ("tile_topk", "scatter"),
+                "compact": ("panel_topk", "scatter")}.get(route, ())
         if any(launches[k] == 0 for k in used) or any(plain.values()):
             raise AssertionError(f"{name}: launches {launches}, plain calls {plain}")
+        _check_plan_launches(name, route, launches, ex.last_plan)
         if route == "compact":
             # K3 once per panel and group, K4 once per gathering panel and group
             buckets, n_groups = ex.last_plan["buckets"], ex.last_plan["n_groups"]
@@ -486,7 +525,7 @@ def _make_call(torch, counters, ex, dev, calls):
 
 def _compaction_calls(sim, compact, call, calls, common, urm, urm_n, W, users, item_t, t8k):
     """Slice 3's calls: the compaction route (K3, K4, K5) against the
-    general route (K1), each call run on, off, on, off: a partial rebuild
+    general route (K1, K5), each call run on, off, on, off: a partial rebuild
     of the model for 8,192 new or changed items, f32 and exact int8, and
     scoring with a catalog-level exclusion list (K3's allowed mask). Both
     routes give the same rows; 64 rows of the f32 rebuild match the
@@ -536,7 +575,7 @@ def _compaction_calls(sim, compact, call, calls, common, urm, urm_n, W, users, i
 
 def phase_main(torch, sim, counters, ex, urm, dev):
     """The main path on `urm` (users x items, f32 half-star ratings)."""
-    from similaripy_tpu_torch.engine import compact, symmetric
+    from similaripy_tpu_torch.engine import compact, splus, symmetric
     from similaripy_tpu_torch.engine.assembly import assemble
     from similaripy_tpu_torch.engine.params import SPlusParams
     from similaripy_tpu_torch.engine.preprocess import preprocess
@@ -550,7 +589,7 @@ def phase_main(torch, sim, counters, ex, urm, dev):
     common = dict(verbose=False, format_output="csr", device=dev)
 
     calls = {}
-    # slices 1 and 2 hold these calls to the general route (K1): the
+    # slices 1 and 2 hold these calls to the general route (K1, K5): the
     # compaction route is off for them; slice 3's calls below set it
     compact.MODE = "off"
 
@@ -574,6 +613,35 @@ def phase_main(torch, sim, counters, ex, urm, dev):
              lambda: sim.cosine(urm_n.T, k=100, **common), "symmetric")
     recs = call("recommend", "recommend(bm25(urm), W, k=10)",
                 lambda: sim.recommend(urm_n, W, k=10, target_rows=users, **common), "general")
+    # the fold needs every rating > 0: on the tracked data BM25 weights some
+    # ratings of the most popular items below 0, so its gate refuses
+    bm25_min = float(urm_n.data.min())
+    if (calls["recommend"]["plan"]["fold"] is None) != (bm25_min <= 0):
+        raise AssertionError(f"recommend(bm25(urm)): fold {calls['recommend']['plan']['fold']} "
+                             f"with the smallest weight {bm25_min}")
+    # recommend on the raw ratings (all > 0) with the exclude-seen fold (the
+    # default) and with it off, in turns on, off, on, off (the second turn
+    # of each runs on warm caches); the timing laps of each
+    splus.TIMING = True
+    laps = {}
+    try:
+        for turn, fold_on in (("0", True), ("0", False), ("1", True), ("1", False)):
+            ex.FOLD_FILTER = fold_on
+            key = ("recommend_raw" if fold_on else "recommend_raw_masked") + (
+                "" if turn == "0" else "_1")
+            out = call(key, "recommend(urm, W, k=10)" + ("" if fold_on else ", fold off"),
+                       lambda: sim.recommend(urm, W, k=10, target_rows=users, **common),
+                       "general")
+            laps[key] = dict(splus.last_laps)
+            if key == "recommend_raw":
+                recs_raw = out
+            elif key == "recommend_raw_masked":
+                masked = out
+    finally:
+        ex.FOLD_FILTER = True
+        splus.TIMING = False
+    fold = _fold_check(calls, recs_raw, masked, laps)
+    fold["bm25"] = {"fold": calls["recommend"]["plan"]["fold"], "min_weight": bm25_min}
     G = call("cosine_targeted", "cosine(bm25(urm).T, k=100), 1,024 items",
              lambda: sim.cosine(urm_n.T, k=100, target_rows=items, **common), "general")
     W8 = call("cosine_int8", "cosine(urm.T, k=100) int8",
@@ -596,6 +664,8 @@ def phase_main(torch, sim, counters, ex, urm, dev):
     cos = dict(l2=1, c1=0.5, c2=0.5)
     _same("recommend", recs, plain_route(urm_n, W.T.tocsr(), SPlusParams(), 10, users,
                                          filt=urm_n), exact=False)
+    _same("recommend, raw ratings, folded", recs_raw,
+          plain_route(urm, W.T.tocsr(), SPlusParams(), 10, users, filt=urm), exact=False)
     _same("cosine, 1,024 items", G,
           plain_route(item_t, None, SPlusParams(l2=1), 100, items, **cos), exact=False)
     _same("cosine int8, 1,024 items", G8,
@@ -643,16 +713,287 @@ def phase_main(torch, sim, counters, ex, urm, dev):
     checks["compaction_s"] = time.perf_counter() - t
 
     seen = urm_n[users].tocsr()
-    recs_u = recs.tocsr()[users]
-    for r in range(users.shape[0]):
-        s = set(seen.indices[seen.indptr[r]:seen.indptr[r + 1]].tolist())
-        g = recs_u.indices[recs_u.indptr[r]:recs_u.indptr[r + 1]].tolist()
-        if s.intersection(g):
-            raise AssertionError(f"recommend: user {users[r]} got a seen item")
+    for name, res in (("recommend", recs), ("recommend, raw ratings, folded", recs_raw)):
+        recs_u = res.tocsr()[users]
+        for r in range(users.shape[0]):
+            s = set(seen.indices[seen.indptr[r]:seen.indptr[r + 1]].tolist())
+            g = recs_u.indices[recs_u.indptr[r]:recs_u.indptr[r + 1]].tolist()
+            if s.intersection(g):
+                raise AssertionError(f"{name}: user {users[r]} got a seen item")
     state = {"urm_n": urm_n, "W": W, "users": users, "items": items, "pop_t": pop_t,
-             "t8k": t8k, "plans": {k: c["plan"] for k, c in calls.items()}}
+             "t8k": t8k, "plans": {k: c["plan"] for k, c in calls.items()},
+             "recs_raw": recs_raw, "G": G, "W8": W8}
     return {"bm25_seconds": bm25_s, "calls": list(calls.values()), "checks": checks,
-            "compaction": compaction}, state
+            "fold": fold, "compaction": compaction}, state
+
+
+def _fold_check(calls, folded, masked, laps):
+    """recommend with the fold armed equals recommend with it off: the plan
+    shows the fold's M on the first call and None on the second, equal nnz
+    and check_sum within rtol 1e-5, and the largest value difference
+    between the rows' sorted values."""
+    on, off = calls["recommend_raw"], calls["recommend_raw_masked"]
+    if on["plan"].get("fold") is None or off["plan"].get("fold") is not None:
+        raise AssertionError(f"fold: armed {on['plan'].get('fold')}, "
+                             f"off {off['plan'].get('fold')}")
+    a, b = folded.tocsr(), masked.tocsr()
+    if a.nnz != b.nnz or not np.array_equal(a.indptr, b.indptr):
+        raise AssertionError(f"fold: nnz {a.nnz} vs {b.nnz} with the fold off")
+    np.testing.assert_allclose(check_sum(a), check_sum(b), rtol=1e-5,
+                               err_msg="fold: check_sum vs the fold off")
+    return {"M": on["plan"]["fold"], "nnz": int(a.nnz), "check_sum": [on["check_sum"],
+            off["check_sum"]], "max_value_diff": float(np.max(np.abs(
+                _row_sorted(a) - _row_sorted(b)), initial=0.0)),
+            "ids_equal": bool(np.array_equal(a.indices, b.indices)),
+            "seconds": {k: calls[k]["seconds"] for k in laps}, "laps": laps}
+
+
+def _row_sorted(x):
+    """A CSR's values sorted within each row (rows in order)."""
+    rows = np.repeat(np.arange(x.shape[0]), np.diff(x.indptr))
+    return x.data[np.lexsort((x.data, rows))].astype(np.float64)
+
+
+def _rows_equal(name, got, ref, exact):
+    """Every row of two results: equal nnz per row; identical sorted values
+    (exact), or check_sum within rtol 1e-5; and the same column id at every
+    entry clear of ties (``_ids_agree``). Returns the share of entries
+    whose id was compared."""
+    got, ref = got.tocsr(), ref.tocsr()
+    if got.shape != ref.shape or not np.array_equal(got.indptr, ref.indptr):
+        raise AssertionError(f"{name}: nnz {got.nnz} vs the single device's {ref.nnz}")
+    if exact:
+        if not np.array_equal(_row_sorted(got), _row_sorted(ref)):
+            raise AssertionError(f"{name}: values differ from the single device's")
+    else:
+        np.testing.assert_allclose(check_sum(got), check_sum(ref), rtol=1e-5,
+                                   err_msg=f"{name}: check_sum vs the single device")
+    return _ids_agree(name, got, ref, 0.0 if exact else 1e-5)
+
+
+def _sorted_rows(x):
+    """(values, ids) of a CSR's rows, each sorted by value descending (ties
+    by id), as (rows, widest row) arrays padded with -inf and -1."""
+    counts = np.diff(x.indptr)
+    rows = np.repeat(np.arange(x.shape[0]), counts)
+    order = np.lexsort((x.indices, -x.data.astype(np.float64), rows))
+    pos = np.arange(x.nnz) - x.indptr[rows]
+    width = int(counts.max(initial=0))
+    v = np.full((x.shape[0], width), -np.inf)
+    i = np.full((x.shape[0], width), -1, np.int64)
+    v[rows, pos] = x.data[order]
+    i[rows, pos] = x.indices[order]
+    return v, i
+
+
+def _ids_agree(name, got, ref, rel):
+    """The same column id in both results at every entry whose value is
+    clear, by a relative gap `rel`, of its row neighbours and, in the
+    widest rows (which the top-k may have cut), of the row's last value:
+    there the id does not depend on how a top-k breaks ties. Returns the
+    share of entries compared."""
+    gv, gi = _sorted_rows(got)
+    rv, ri = _sorted_rows(ref)
+    ok = _not_tied(rv.T, rel).T
+    width = np.isfinite(rv).sum(axis=1)
+    last = np.where(width > 0, rv[np.arange(rv.shape[0]), np.maximum(width - 1, 0)], 0.0)
+    with np.errstate(invalid="ignore"):
+        ok &= ~((width == rv.shape[1])[:, None]
+                & (np.abs(rv - last[:, None]) <= rel * np.abs(last[:, None])))
+    np.testing.assert_allclose(gv[ok], rv[ok], rtol=max(rel, 1e-7), atol=0,
+                               err_msg=f"{name}: values at untied entries")
+    bad = int(np.count_nonzero(ok & (gi != ri)))
+    if bad:
+        raise AssertionError(f"{name}: {bad} untied entries hold another column id "
+                             "than the single device's")
+    return float(ok.sum()) / max(ref.nnz, 1)
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: multi-device execution (mesh=) over torch.distributed
+# ---------------------------------------------------------------------------
+
+MESH_SHAPES_2 = ((1, 2), (2, 1))
+
+
+def phase_mesh(torch, sim, counters, ex, urm, dev, state):
+    """(a) one rank over NCCL with mesh (1, 1): the f32 cosine over all
+    items (sharded symmetric: K2, K5), recommend(urm, W) for the 1,024 users
+    with the fold and the cosine for the 1,024 items (grouped sharded: K1, K5),
+    each equal to phase main's single-device result. (b) two ranks over
+    gloo sharing the card, meshes (1, 2) and (2, 1): the exact int8 cosine
+    over all items and recommend(urm, W); both ranks return the same result, equal
+    to the single-device one, each rank launches its schedule_anatomy share
+    of K2 and no plain version. The stores live in a temporary directory."""
+    import tempfile
+
+    import scipy.sparse as sp
+    import torch.distributed as dist
+
+    from similaripy_tpu_torch.parallel import make_mesh
+
+    urm_n, W, users, items = state["urm_n"], state["W"], state["users"], state["items"]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="similaripy_mesh_") as tmp:
+        # (a) this process, one rank over NCCL
+        # one host: NCCL's and gloo's sockets on the loopback interface
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        torch.cuda.set_device(torch.cuda.current_device())
+        t = time.perf_counter()
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_mesh(1, 1)
+            init_s = time.perf_counter() - t
+            calls = {}
+            call = _make_call(torch, counters, ex, dev, calls)
+            common = dict(verbose=False, format_output="csr", device=dev, mesh=mesh)
+            got = call("cosine", "cosine(bm25(urm).T, k=100), mesh (1, 1)",
+                       lambda: sim.cosine(urm_n.T, k=100, **common), "sym_sharded")
+            calls["cosine"]["ids_compared"] = _rows_equal("mesh cosine", got, W, exact=False)
+            got = call("recommend", "recommend(urm, W, k=10), mesh (1, 1)",
+                       lambda: sim.recommend(urm, W, k=10, target_rows=users, **common),
+                       "sharded")
+            if calls["recommend"]["plan"]["fold"] is None:
+                raise AssertionError("mesh recommend: the fold did not arm")
+            calls["recommend"]["ids_compared"] = _rows_equal(
+                "mesh recommend", got, state["recs_raw"], exact=False)
+            got = call("cosine_targeted", "cosine(bm25(urm).T, k=100), 1,024 items, mesh (1, 1)",
+                       lambda: sim.cosine(urm_n.T, k=100, target_rows=items, **common), "sharded")
+            calls["cosine_targeted"]["ids_compared"] = _rows_equal(
+                "mesh cosine, 1,024 items", got, state["G"], exact=False)
+        finally:
+            dist.destroy_process_group()
+        out["nccl_1"] = {"init_s": init_s, "calls": list(calls.values())}
+
+        # (b) two ranks over gloo on this one card
+        sim.clear_caches()
+        torch.cuda.empty_cache()
+        sp.save_npz(os.path.join(tmp, "W.npz"), W, compressed=False)
+        np.save(os.path.join(tmp, "users.npy"), users)
+        t = time.perf_counter()
+        torch.multiprocessing.spawn(_mesh_rank, args=(2, tmp), nprocs=2, join=True)
+        spawn_s = time.perf_counter() - t
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        out["gloo_2"] = {"spawn_s": spawn_s,
+                         "ranks": _check_gloo_ranks(tmp, ranks, state)}
+    return out
+
+
+def _mesh_rank(rank, world, tmp):
+    """One rank of the gloo world: the int8 cosine over all items and
+    recommend for the 1,024 users on each mesh of MESH_SHAPES_2, each
+    result saved to `tmp` beside the rank's walls, launches and plans."""
+    import datetime
+
+    import scipy.sparse as sp
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    sys.path.insert(0, HERE)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/gloo_store", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    try:
+        import similaripy_tpu_torch as sim
+        from similaripy_tpu_torch.engine import build
+        from similaripy_tpu_torch.engine import executor as ex
+        from similaripy_tpu_torch.engine import gather, panel_topk, scatter, sym_topk, tile_topk
+        from similaripy_tpu_torch.parallel import make_mesh
+
+        build.load()
+        counters = {"tile_topk": tile_topk, "sym_topk": sym_topk, "scatter": scatter,
+                    "panel_topk": panel_topk, "gather": gather}
+        urm = sp.load_npz(DATA).tocsr().astype(np.float32)
+        W = sp.load_npz(os.path.join(tmp, "W.npz")).tocsr()
+        users = np.load(os.path.join(tmp, "users.npy"))
+        dev = torch.device("cuda", 0)
+        record = {"rank": rank, "calls": {}}
+        for shape in MESH_SHAPES_2:
+            mesh = make_mesh(*shape)
+            record["ranks_per_card"] = mesh.ranks_per_card
+            calls = {}
+            call = _make_call(torch, counters, ex, dev, calls)
+            common = dict(verbose=False, format_output="csr", device=dev, mesh=mesh)
+            tag = f"{shape[0]}x{shape[1]}"
+            for key, name, fn, route in (
+                ("cosine_int8", f"cosine(urm.T, k=100) int8, mesh {shape}",
+                 lambda: sim.cosine(urm.T, k=100, **common), "sym_sharded"),
+                ("recommend", f"recommend(urm, W, k=10), mesh {shape}",
+                 lambda: sim.recommend(urm, W, k=10, target_rows=users, **common),
+                 "sharded"),
+            ):
+                res = call(key, name, fn, route)
+                sp.save_npz(os.path.join(tmp, f"rank{rank}_{tag}_{key}.npz"), res,
+                            compressed=False)
+                c = calls[key]
+                c["plan"] = {k: v for k, v in c["plan"].items()
+                             if isinstance(v, (int, float, str, list, tuple, type(None)))}
+                c["plain_calls"] = {k: m.plain_calls for k, m in counters.items()}
+                record["calls"][f"{tag}_{key}"] = c
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(record, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _geometry(plan):
+    """A mesh plan without its rank-specific entries."""
+    own = ("rank", "coordinate", "blocks", "scatters")
+    return {k: v for k, v in plan.items() if k not in own}
+
+
+def _check_gloo_ranks(tmp, ranks, state):
+    """Both ranks returned the same result, equal to the single device's
+    (int8 values identical; recommend by nnz and check_sum rtol 1e-5); the
+    K2 launches of each rank, and their sum, equal schedule_anatomy's
+    counts for the plan the ranks chose; no rank ran a plain version."""
+    import scipy.sparse as sp
+
+    from similaripy_tpu_torch.engine.sym_sharded import schedule_anatomy
+
+    for r in ranks:
+        if r["ranks_per_card"] != 2:
+            raise AssertionError(f"rank {r['rank']}: {r['ranks_per_card']} ranks on its card")
+    summary = {}
+    for shape in MESH_SHAPES_2:
+        tag = f"{shape[0]}x{shape[1]}"
+        for key, ref, exact in (("cosine_int8", state["W8"], True),
+                                ("recommend", state["recs_raw"], False)):
+            results = [sp.load_npz(os.path.join(tmp, f"rank{r}_{tag}_{key}.npz")).tocsr()
+                       for r in range(len(ranks))]
+            for r, res in enumerate(results[1:], 1):
+                for f in ("indptr", "indices", "data"):
+                    if not np.array_equal(getattr(res, f), getattr(results[0], f)):
+                        raise AssertionError(f"mesh {tag} {key}: rank {r} differs from rank 0")
+            ids = _rows_equal(f"mesh {tag} {key}", results[0], ref, exact=exact)
+            calls = [r["calls"][f"{tag}_{key}"] for r in ranks]
+            plan = calls[0]["plan"]
+            if any(_geometry(c["plan"]) != _geometry(plan) for c in calls):
+                raise AssertionError(f"mesh {tag} {key}: the ranks planned differently")
+            if any(any(c["plain_calls"].values()) for c in calls):
+                raise AssertionError(f"mesh {tag} {key}: a rank ran a plain version")
+            entry = {"seconds": [c["seconds"] for c in calls],
+                     "launches": [c["launches"] for c in calls], "nnz": results[0].nnz,
+                     "check_sum": check_sum(results[0]), "ids_compared": ids}
+            if key == "cosine_int8":
+                if plan["compute_dtype"] != "int8":
+                    raise AssertionError(f"mesh {tag} cosine ran {plan['compute_dtype']}")
+                an = schedule_anatomy(n_tiles=plan["n_tiles"], gt=plan["gt"], N=len(ranks))
+                k2 = [c["launches"]["sym_topk"] for c in calls]
+                if k2 != an["k2_blocks"] or sum(k2) != sum(an["k2_blocks"]):
+                    raise AssertionError(f"mesh {tag}: K2 launches {k2}, anatomy "
+                                         f"{an['k2_blocks']}")
+                entry.update(plan={k: plan[k] for k in ("tc", "gt", "n_tiles", "pairs")},
+                             anatomy=an)
+            elif plan["fold"] is None:
+                raise AssertionError(f"mesh {tag} recommend: the fold did not arm")
+            summary[f"{tag}_{key}"] = entry
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -1353,6 +1694,10 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
+    mesh = phase_mesh(torch, sim, counters, ex, urm, dev, state)
+    emit({"phase": "mesh", **mesh, "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
     times = phase_times(torch, sim, tt, st, sc, urm, state)
     emit({"phase": "times", **times, "seconds": time.perf_counter() - t0})
 
@@ -1360,7 +1705,9 @@ def main() -> int:
     probes = phase_probes(torch, dev)
     emit({"phase": "probes", **probes, "seconds": time.perf_counter() - t0})
 
-    launches = {k: sum(c["launches"][k] for c in main_path["calls"])
+    mesh_calls = mesh["nccl_1"]["calls"] + [
+        {"launches": r} for e in mesh["gloo_2"]["ranks"].values() for r in e["launches"]]
+    launches = {k: sum(c["launches"][k] for c in main_path["calls"] + mesh_calls)
                 for k in KERNELS if k not in PROBE_KERNELS}
     launches.update(probes["path"]["launches"])
     if not all(launches.values()):

@@ -50,23 +50,17 @@ def densify(shape, rows, cols, vals, cdt):
     return out.view(shape)
 
 
-def stack_tiles(rows, cols, vals, *, u_pad: int, tc: int, cdt):
-    """(G, p2) padded tile COOs -> (G, u_pad, tc) dense tiles, in plain
-    PyTorch (uncounted: the general executor's densify)."""
-    g = rows.shape[0]
-    tile_ids = torch.arange(g, device=rows.device, dtype=torch.int64)[:, None]
-    # fold the tile id into the row so one scatter fills the whole stack;
-    # a padding sentinel (row >= u_pad) stays out of range
-    stacked_rows = torch.where(rows < u_pad, rows + tile_ids * u_pad, g * u_pad)
-    return densify((g * u_pad, tc), stacked_rows.ravel(), cols.ravel(),
-                   vals.ravel(), cdt).view(g, u_pad, tc)
-
-
 def densify_tiles_plain(ru, sl, vv, *, u_pad: int, tc: int, cdt):
     """`densify_tiles` in plain PyTorch, on any device."""
     global plain_calls
     plain_calls += 1
-    return stack_tiles(ru, sl, vv, u_pad=u_pad, tc=tc, cdt=cdt)
+    g = ru.shape[0]
+    tile_ids = torch.arange(g, device=ru.device, dtype=torch.int64)[:, None]
+    # fold the tile id into the row so one scatter fills the whole stack;
+    # a padding sentinel (row >= u_pad) stays out of range
+    stacked_rows = torch.where(ru < u_pad, ru + tile_ids * u_pad, g * u_pad)
+    return densify((g * u_pad, tc), stacked_rows.ravel(), sl.ravel(),
+                   vv.ravel(), cdt).view(g, u_pad, tc)
 
 
 def densify_tiles(ru, sl, vv, *, u_pad: int, tc: int, cdt):

@@ -11,8 +11,12 @@ Extensions (keyword-only, defaulted so reference call sites work unchanged):
                   data, else float32) | 'float32' | 'bfloat16' | 'int8'
   precision     : 'highest' (default) | 'high' | 'default' — a minimum
                   guarantee; this port runs every float32 product in true f32
-  device        : 'cuda' (default) or 'cpu'; 'cuda' without a card raises
-  mesh          : multi-device execution is not ported yet (raises)
+  device        : 'cuda' (default) or 'cpu'; 'cuda' without a card raises.
+                  On a mesh it is this rank's compute device
+  mesh          : a ('rows', 'cols') DeviceMesh from
+                  ``parallel.make_mesh``: every rank of the process group
+                  makes the same call and gets the whole result
+                  (engine/sharded.py, engine/sym_sharded.py)
 
 `num_threads` is accepted for API compatibility and ignored. `block_size`
 keeps the reference's tri-state semantics (None = single tile, 0 = auto,
@@ -21,6 +25,8 @@ int = explicit width) as a column-tile-width hint.
 
 from __future__ import annotations
 
+import sys
+import time
 from typing import Optional
 
 from ..utils.device import resolve_device
@@ -29,6 +35,14 @@ from .assembly import assemble
 from .executor import execute
 from .params import SPlusParams
 from .preprocess import Preprocessed, preprocess, validate_s_plus_inputs
+
+# host timing laps of each call (splus.py:78-183 of the JAX package, there
+# behind SIMILARIPY_TPU_TIMING): with TIMING on, last_laps holds the seconds
+# of "validate", "preprocess", "execute (wall)" and "assembly" of the latest
+# call, and each lap is printed to stderr. The port reads no environment
+# variable.
+TIMING = False
+last_laps: dict = {}
 
 
 def s_plus(
@@ -70,14 +84,23 @@ def s_plus(
     Reference semantics: similaripy/cython_code/s_plus.pyx:95-433.
     """
     device = resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-device execution over torch.distributed) comes with "
-            "the port's multi-device slice; this slice runs on one device"
-        )
     self_similar = matrix2 is None
     if matrix2 is None:
         matrix2 = matrix1.T
+
+    timing = TIMING
+    if timing:
+        last_laps.clear()
+    t_mark = time.perf_counter()
+
+    def lap(label):
+        nonlocal t_mark
+        if not timing:
+            return
+        now = time.perf_counter()
+        last_laps[label] = now - t_mark
+        print(f"# {label}: {now - t_mark:.3f}s", file=sys.stderr, flush=True)
+        t_mark = now
 
     validate_s_plus_inputs(
         matrix1=matrix1,
@@ -98,6 +121,7 @@ def s_plus(
     progress = ProgressBar(n_targets, disabled=not verbose)
     progress.set_description("Preprocessing")
 
+    lap("validate")
     pre: Preprocessed = preprocess(
         matrix1,
         matrix2,
@@ -119,6 +143,7 @@ def s_plus(
         self_similar=self_similar,
     )
 
+    lap("preprocess")
     params = SPlusParams(
         a1=a1,
         l1=l1,
@@ -132,7 +157,12 @@ def s_plus(
     )
 
     progress.set_description("Computing")
-    vals, idx = execute(
+    run, on_mesh = execute, {}
+    if mesh is not None:
+        from .sharded import execute_sharded
+
+        run, on_mesh = execute_sharded, {"mesh": mesh}
+    vals, idx = run(
         pre,
         params,
         block_size_hint=block_size,
@@ -140,9 +170,11 @@ def s_plus(
         precision=precision,
         progress=progress,
         device=device,
+        **on_mesh,
     )
 
     progress.set_description(f"Building {format_output} matrix")
+    lap("execute (wall)")
     res = assemble(
         vals,
         idx,
@@ -151,5 +183,6 @@ def s_plus(
         pre.n_output_cols,
         format_output,
     )
+    lap("assembly")
     progress.close("Done")
     return res

@@ -23,7 +23,10 @@ upper block triangle once:
     swapped;
   - anchors go in PAIRS that share one inner sweep, and a finished pair's
     rows are final: they are merged (``_pack_rows_dual``) and copied to
-    the host before the next pair starts.
+    the host before the next pair starts;
+  - on a mesh (``mesh=``) every step of the sweep runs on one rank
+    (``sym_sharded.pair_schedule``) and a finished pair's rows are
+    all-gathered over the ranks and re-selected before they are copied.
 
 The result equals the general executor's: the same epilogue, the same
 candidate rule (xy != 0), exact top-k. Left out of the port, as TPU
@@ -44,9 +47,11 @@ import numpy as np
 import torch
 
 from ..ops.csr import csc_quantized
+from ..parallel import mesh as pmesh
 from . import scatter, sym_topk
 from .params import SPlusParams, build_pvec
 from .preprocess import Preprocessed, _fingerprint
+from .sym_sharded import pair_schedule, rank_work, schedule_anatomy
 
 NEG_INF = float("-inf")
 
@@ -306,24 +311,31 @@ def execute_symmetric(
     progress=None,
     device: torch.device,
     tile_fn: str = "kernel",
+    mesh=None,
 ):
     """Self-similarity top-k; returns host (C, k) vals f32 and idx int32.
 
     f32 always runs as true f32 (the caller's `precision` is a minimum).
     `tile_fn` "plain" runs K2's and K5's plain versions even on a card
-    (for comparisons only)."""
+    (for comparisons only). With `mesh` (``parallel.make_mesh``) this rank
+    runs its share of the pair schedule (``sym_sharded.pair_schedule``) on
+    the budget agreed over ranks, and every rank returns the whole result."""
     from . import executor as ex
 
     t_enter = time.perf_counter()
     C = pre.n_output_cols
     U = pre.m1.shape[1]
     k = pre.k
+    R_sh, C_sh = pmesh.axis_sizes(mesh)
+    r_me, c_me = pmesh.coordinate(mesh)
+    N, me = R_sh * C_sh, r_me * C_sh + c_me
     compute_dtype, inv_scale = ex.resolve_compute_dtype(compute_dtype, pre)
     int8_mode = compute_dtype in ("int8", "int4")
     cdt = ex.compute_cast(compute_dtype)
 
     # cached uploads of OTHER matrices occupy real device memory: plan
-    # around them, floored at a quarter of the budget
+    # around them, floored at a quarter of the budget; every rank plans
+    # with the smallest such budget
     budget = budget_bytes
     foreign = ex.foreign_cache_bytes((pre.fp1, pre.fp2))
     if foreign > (budget * 3) // 4:
@@ -335,7 +347,7 @@ def execute_symmetric(
             RuntimeWarning,
             stacklevel=2,
         )
-    budget = max(budget // 4, budget - foreign)
+    budget = pmesh.agree_min(max(budget // 4, budget - foreign), mesh)
 
     # carry depth: no row has more than C candidates
     k_kern = min(k, C)
@@ -354,9 +366,7 @@ def execute_symmetric(
     n_tiles_dev = n_groups * gt
     Cdev = n_tiles_dev * tc
     sw = gt * tc
-    pair_list = [
-        (a, a + 1) if a + 1 < n_groups else (a,) for a in range(0, n_groups, 2)
-    ]
+    schedule = pair_schedule(n_tiles_dev, gt, N)
 
     dev_coo, vecs, item_map = cached_prep_symmetric(
         pre, compute_dtype, tc, n_tiles_dev, u_pad, device
@@ -365,16 +375,20 @@ def execute_symmetric(
     flags = params.static_flags()
     asym = not epilogue_is_symmetric(pre, params)
     k_pad_r, k_pad_c = sym_topk.sym_k_pads(k_kern, tc, sw)
+    anatomy = schedule_anatomy(n_tiles=n_tiles_dev, gt=gt, N=N)
 
     ex.last_plan.clear()
     ex.last_plan.update(
         compute_dtype=compute_dtype, tc=tc, gt=gt, u_pad=u_pad, k_pad=k_pad,
-        n_tiles=n_tiles_dev, n_groups=n_groups, sw=sw, pairs=len(pair_list),
-        blocks=_triangle_counts(n_tiles_dev, gt)[0], asym=asym,
+        n_tiles=n_tiles_dev, n_groups=n_groups, sw=sw, pairs=len(schedule),
+        asym=asym, mesh=(R_sh, C_sh), rank=me, budget=budget,
+        # this rank's share of the schedule (all of it on one device)
+        blocks=anatomy["k2_blocks"][me], scatters=anatomy["k5_scatters"][me],
     )
 
-    # carries: one row-side plane per anchor group, one col-side plane per
-    # tile, so every K2 call reads and replaces whole contiguous planes
+    # carries, full width on every rank: one row-side plane per anchor
+    # group, one col-side plane per tile, so every K2 call reads and
+    # replaces whole contiguous planes
     def planes(depth, width, count):
         return (
             [torch.full((depth, width), NEG_INF, device=device) for _ in range(count)],
@@ -400,54 +414,58 @@ def execute_symmetric(
             "y2": vec3("y", t0, t1) if asym else None,  # Y at the anchor's items
         }
 
-    def sweep(anchors, c0: int, c1: int):
-        for t in range(c0, c1):
-            own = [an for an in anchors if an["a"] == t // gt]
-            if own:  # the tile is resident in an anchor: slice, no densify
-                d = own[0]["lhs"][t - own[0]["a"] * gt]
-            else:
-                d = densify(*coo(t, t + 1), u_pad=u_pad, tc=tc, cdt=cdt)[0]
-            y = vec3("y", t, t + 1)
-            x2 = vec3("x", t, t + 1) if asym else None
-            for an in anchors:
-                a = an["a"]
-                pv = np.zeros(16, np.float32)
-                pv[:10] = pvec_host
-                pv[10:14] = (t * tc, a * gt * tc, t, a * gt)
-                rkth = crv[a][k_pad_r - 1].view(sw, 1)
-                crv[a], cri[a], ccv[t], cci[t] = step(
-                    an["lhs"], d, *an["x"], *y, crv[a], cri[a], rkth, ccv[t], cci[t],
-                    torch.from_numpy(pv).to(device),
-                    flags=flags, k=k_kern, tc=tc, int8_mode=int8_mode, x2=x2, y2=an["y2"],
-                )
+    def run_step(anchors: dict, sweepers: tuple, t: int):
+        """Tile t against the anchors `sweepers` (K2 once for each)."""
+        own = anchors.get(t // gt)
+        if own is not None:  # the tile is resident in an anchor: slice, no densify
+            d = own["lhs"][t - own["a"] * gt]
+        else:
+            d = densify(*coo(t, t + 1), u_pad=u_pad, tc=tc, cdt=cdt)[0]
+        y = vec3("y", t, t + 1)
+        x2 = vec3("x", t, t + 1) if asym else None
+        for a in sweepers:
+            an = anchors[a]
+            pv = np.zeros(16, np.float32)
+            pv[:10] = pvec_host
+            pv[10:14] = (t * tc, a * gt * tc, t, a * gt)
+            rkth = crv[a][k_pad_r - 1].view(sw, 1)
+            crv[a], cri[a], ccv[t], cci[t] = step(
+                an["lhs"], d, *an["x"], *y, crv[a], cri[a], rkth, ccv[t], cci[t],
+                torch.from_numpy(pv).to(device),
+                flags=flags, k=k_kern, tc=tc, int8_mode=int8_mode, x2=x2, y2=an["y2"],
+            )
 
     out_vals = np.full((C, k), NEG_INF, np.float32)
     out_idx = np.zeros((C, k), np.int32)
     t_prep = time.perf_counter()
     sweep_s = pack_s = 0.0
     done_rows = 0
-    for pair in pair_list:
+    for pair, steps in schedule:
         t0 = time.perf_counter()
-        anchors = [make_anchor(a) for a in pair]
-        first = pair[0] * gt
-        if len(pair) == 2:
-            sweep(anchors[:1], first, pair[1] * gt)  # the band: first anchor only
-            sweep(anchors, pair[1] * gt, n_tiles_dev)
-        else:
-            sweep(anchors, first, n_tiles_dev)
+        # a pair sweeps its first anchor's band with that anchor alone, then
+        # the tiles right of it with both; this rank runs its own steps
+        mine, need, _inner = rank_work(pair, steps, gt, me)
+        anchors = {a: make_anchor(a) for a in need}
+        for t, n in mine:
+            run_step(anchors, pair[:n], t)
         del anchors
         _sync(device)
         t1 = time.perf_counter()
-        # the pair's rows are final: merge both sides and copy them out
+        # the pair's rows are final: merge both sides, then (on a mesh) every
+        # rank's partials, and copy them out
+        parts = [
+            _pack_rows_dual(crv[a], cri[a], ccv[a * gt:(a + 1) * gt],
+                            cci[a * gt:(a + 1) * gt], k)
+            for a in pair
+        ]
+        vals, idx = pmesh.merge_topk(torch.cat([p[0] for p in parts]),
+                                     torch.cat([p[1] for p in parts]), mesh, k)
+        vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+        seg = item_map[pair[0] * sw:(pair[-1] + 1) * sw]
+        real = seg < C
+        out_vals[seg[real]] = vals[real]
+        out_idx[seg[real]] = idx[real]
         for a in pair:
-            vals, idx = _pack_rows_dual(
-                crv[a], cri[a], ccv[a * gt:(a + 1) * gt], cci[a * gt:(a + 1) * gt], k
-            )
-            vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
-            seg = item_map[a * sw:(a + 1) * sw]
-            real = seg < C
-            out_vals[seg[real]] = vals[real]
-            out_idx[seg[real]] = idx[real]
             crv[a] = cri[a] = None
             ccv[a * gt:(a + 1) * gt] = cci[a * gt:(a + 1) * gt] = [None] * gt
         sweep_s += t1 - t0

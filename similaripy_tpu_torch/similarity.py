@@ -594,7 +594,10 @@ _COMMON_DOC = """
             guarantee — this port runs float32 products in true f32.
         device: 'cuda' (default) or 'cpu'; 'cuda' without a card raises
             RuntimeError.
-        mesh: multi-device execution is not ported yet (raises).
+        mesh: a ('rows', 'cols') DeviceMesh from
+            ``similaripy_tpu_torch.parallel.make_mesh`` (torch.distributed:
+            NCCL on cards, gloo on the CPU). Every rank makes the same call
+            and gets the whole result; ``device`` is the rank's own device.
 
     Returns:
         SciPy sparse matrix of shape
