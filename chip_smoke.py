@@ -18,16 +18,21 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
              copy ring and blocks in every mode: K shorter than the ring with
              fewer rows than a block, M = 256 with K ending mid-ring and
              mid-slab and rows not 16-byte aligned, the widest tile (tc
-             8,192), int8 over all of [-128, 127] (tests/torch_k1_cases.py).
-             K2: every mode, symmetric and
+             8,192), int8 over all of [-128, 127] (tests/torch_k1_cases.py);
+             the split-bf16x3 modes 'both', 'rhs' and 'lhs' on the CPU
+             cases that fit their 16-byte copies and at the ring's and
+             blocks' edges (values within rtol 1e-5, with the largest
+             relative error printed). K2: every mode, symmetric and
              asymmetric epilogues, blocks with dead, diagonal and live anchor
              rows, cold and warm carries, k > tc, the main path's widths
              (sw = 2,048, and sw = 18,432 whose col side takes more than one
              shared-memory chunk), and the edges of the product's copy ring:
              K shorter than the ring, K ending mid-ring and mid-slab, a band
              that cuts a three-tile anchor group, the asymmetric epilogue on a
-             diagonal block at tc 2,048, int8 over all of [-128, 127]
-             (tests/torch_k2_cases.py). K3: every mode
+             diagonal block at tc 2,048, int8 over all of [-128, 127],
+             and the split-bf16x3 mode on every block kind, at the main
+             path's widths and at the ring's edges (tests/torch_k2_cases.py).
+             K3: every mode
              with and without the hot bias under each mask, k_pad > tc, K of
              several KB blocks, tc up to 4,096, K shorter than the product's
              ring, K ending mid-ring with unaligned rows and an odd group
@@ -53,12 +58,18 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
              cosine(k=100) for 1,024 items (the general route, K1 and K5); the exact
              int8 cosine on the raw ratings over all items and for the 1,024
              items; asymmetric_cosine(alpha=0.3) over the 16,384 most popular
-             items. Each call took its route, launched its kernels and no
-             plain version (these calls hold the compaction route off). Then
+             items; with precision='high' (the split-bf16x3 modes), the
+             f32 build over all items (mode 'both', K2 and K5) and
+             recommend(urm, W, k=10) for the 1,024 users on the raw
+             ratings (mode 'rhs', the fold on, K1 and K5). Each call took
+             its route, launched its kernels and no plain version (these
+             calls hold the compaction route off). Then
              the checks: recommend and the 1,024-item
              cosines match the same calls through the plain versions (nnz,
              check_sum rtol 1e-4; int8 identical); 64 sampled rows match a
-             float64 SciPy oracle (rtol 1e-4); the symmetric results' rows
+             float64 SciPy oracle (rtol 1e-4; the 'high' build and the
+             'high' recommend too, and each matches its 'highest' call:
+             nnz, check_sum rtol 1e-4); the symmetric results' rows
              at the 1,024 items match the general route's (nnz, check_sum
              rtol 1e-5 for f32, equal values for int8); the asymmetric call
              matches the general route on all its rows, and so does the same
@@ -88,11 +99,15 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
              call's wall and each rank's launches are printed
   4 times    at the main path's shapes: K2 on a live off-diagonal block and a
              diagonal block (f32), a live block in bf16 (the f32 build's
-             geometry) and in int8, K5 on one inner tile, K1 on a 1,024-item cosine
-             panel (f32 and int8) and a recommend panel, K3 on a panel of the
+             geometry), in split-bf16x3 (the 'high' build's) and in int8, K5
+             on one inner tile, K1 on a 1,024-item cosine panel (f32, int8,
+             split 'both') and a recommend panel (f32; split 'rhs' on the
+             raw ratings), K3 on a panel of the
              largest cold bucket of the 8,192-item cosine (f32 and int8) and
              K4 on its gather: kernel, bound, plain and library
-             (K2: torch.matmul + epilogue + torch.topk on both sides; K5:
+             (K2: torch.matmul + epilogue + torch.topk on both sides, bf16
+             and split as one cuBLAS bf16 product with an f32 result per
+             phase, `library_chain` naming the call; K5:
              index_put_; K1: torch.matmul or torch._int_mm + torch.topk; K3:
              the same with the bias and the epilogue; K4: index_select);
              K2's three launches and a warm repeat of the asymmetric call
@@ -125,7 +140,9 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
              the --quick kernel-check sweep (must pass); K1's
              microbenchmark (micro_tile_kernel, chained and fresh carry)
 
-then the `kernels` line and, last, {"ok": true, "device": {...}}. Any failed
+then the `kernels` line (K1 and K2 once more as "tile_topk:split-bf16x3"
+and "sym_topk:split-bf16x3": their launches in the 'high' calls, their
+split times) and, last, {"ok": true, "device": {...}}. Any failed
 check raises and the script exits non-zero; without a card it exits non-zero
 before printing anything. It writes nothing but the kernel build.
 """
@@ -164,6 +181,10 @@ KERNELS = {
 }
 # the kernels driven by the probes phase, not by the main path
 PROBE_KERNELS = ("probe_tlhs", "probe_int_mma")
+# the split-bf16x3 modes (precision='high') of K1 and K2, each with a line
+# of its own in `kernels`: the same sources, their launches in the main
+# path's 'high' calls
+SPLIT_KERNELS = {"tile_topk:split-bf16x3": "tile_topk", "sym_topk:split-bf16x3": "sym_topk"}
 # P1 at K2's full-width block: (K, M, N); int8 blocks are 4,096 wide
 P1_FULL = {"float32": (200_960, 2048, 2048), "bfloat16": (200_960, 2048, 2048),
            "int8": (200_960, 4096, 4096)}
@@ -319,26 +340,78 @@ def parity_k1(torch, tt, dev):
             card_err[mode] = max(card_err[mode], float(np.max(np.abs(got[0][fin] - ref[0][fin]))))
             card_top = max(card_top, float(np.max(np.abs(ref[0][fin]))))
         cases += 1
+    split = _parity_k1_split(tt, dev)
     return {"cases": cases, "max_abs_err": max_err, "card_cases": len(CARD_CASES),
-            "card_max_abs_err": card_err, "card_max_value": card_top}
+            "card_max_abs_err": card_err, "card_max_value": card_top, "split": split}
+
+
+def _rel_err(got, ref):
+    """The largest |got - ref| / |ref| over the finite slots of `ref`."""
+    fin = np.isfinite(ref) & (ref != 0)
+    return float(np.max(np.abs(got[fin] - ref[fin]) / np.abs(ref[fin]))) if fin.any() else 0.0
+
+
+def _parity_k1_split(tt, dev):
+    """K1's split-bf16x3 modes against the plain version: the CPU parity
+    cases that fit the split kernels' 16-byte copies and the ring's and
+    blocks' edges (tests/torch_k1_cases.py), values within SPLIT_RTOL."""
+    from torch_k1_cases import (SPLIT_CARD_CASES, SPLIT_CASES, SPLIT_RTOL, assert_same_split,
+                                make_split_case, run_port_split, split_card_ok)
+
+    def plain(split, *case):
+        return run_port_split(tt.fused_tile_topk_plain, split, *case, device=dev.type)
+
+    cases = [c + (None,) for c in SPLIT_CASES if split_card_ok(*c)] + SPLIT_CARD_CASES
+    abs_err = {"both": 0.0, "rhs": 0.0, "lhs": 0.0}
+    rel_err = dict(abs_err)
+    for split, carry_on, mask, label in cases:
+        case = make_split_case(split, carry_on, mask, plain, label)
+        got = run_port_split(tt.fused_tile_topk, split, *case, device=dev.type)
+        ref = plain(split, *case)
+        try:
+            assert_same_split(got, ref, case[6])
+        except AssertionError as e:
+            raise AssertionError(f"parity K1 split {split} carry={carry_on} mask={mask} "
+                                 f"{label}: {e}") from None
+        fin = np.isfinite(ref[0])
+        if fin.any():
+            abs_err[split] = max(abs_err[split], float(np.max(np.abs(got[0][fin] - ref[0][fin]))))
+            rel_err[split] = max(rel_err[split], _rel_err(got[0], ref[0]))
+    return {"cases": len(cases), "rtol": SPLIT_RTOL, "max_abs_err": abs_err,
+            "max_rel_err": rel_err}
 
 
 def parity_k2(torch, st, dev):
     sys.path.insert(0, os.path.join(HERE, "tests"))
-    from torch_k2_cases import CARD_CASES, CASES, EPILOGUES, case_id, make_inputs, torch_fn
+    from torch_k2_cases import (CARD_CASES, CASES, EPILOGUES, SPLIT_CARD_CASES, SPLIT_CASES,
+                                assert_same, case_id, make_inputs, torch_fn)
 
-    max_err = {"f32": 0.0, "bf16": 0.0, "int8": 0.0}
-    for case in CASES + CARD_CASES:
+    max_err = {"f32": 0.0, "bf16": 0.0, "int8": 0.0, "split": 0.0}
+    split_rel = 0.0
+    cases = CASES + CARD_CASES + SPLIT_CASES + SPLIT_CARD_CASES
+    for case in cases:
         mode = case["mode"]
         plain = torch_fn(st.fused_sym_topk_plain, mode, device=dev.type)
         args, kw = make_inputs(case, plain)
         got = torch_fn(st.fused_sym_topk, mode, device=dev.type)(*args, **kw)
         ref = plain(*args, **kw)
-        use_pow = EPILOGUES[case["epi"]][0][3]
+        flags = EPILOGUES[case["epi"]][0]
+        if mode == "split":  # ids not compared across the top-k's cut (torch_k2_cases)
+            try:
+                assert_same(mode, got, ref, flags)
+            except AssertionError as e:
+                raise AssertionError(f"parity K2 {case_id(case)}: {e}") from None
         for side, sl in (("row", slice(0, 2)), ("col", slice(2, 4))):
-            err = _compare(f"K2 {case_id(case)} {side}", mode, got[sl], ref[sl], use_pow)
+            g, r = got[sl], ref[sl]
+            if mode == "split":
+                fin = np.isfinite(r[0])
+                err = float(np.max(np.abs(g[0][fin] - r[0][fin]))) if fin.any() else 0.0
+                split_rel = max(split_rel, _rel_err(g[0], r[0]))
+            else:
+                err = _compare(f"K2 {case_id(case)} {side}", mode, g, r, flags[3])
             max_err[mode] = max(max_err[mode], err)
-    return {"cases": len(CASES) + len(CARD_CASES), "max_abs_err": max_err}
+    return {"cases": len(cases), "split_cases": len(SPLIT_CASES) + len(SPLIT_CARD_CASES),
+            "max_abs_err": max_err, "split_max_rel_err": split_rel}
 
 
 def parity_k5(torch, sc, dev):
@@ -656,6 +729,21 @@ def phase_main(torch, sim, counters, ex, urm, dev):
              lambda: sim.asymmetric_cosine(pop_t, alpha=0.3, k=100, **common), "symmetric")
     if not calls["asymmetric_cosine"]["plan"]["asym"]:
         raise AssertionError("asymmetric_cosine did not run the asymmetric epilogue")
+    # precision='high' on f32: the build over all items in the split-bf16x3
+    # mode 'both' (K2 on the tensor cores, K5 densifying the [hi; lo]
+    # stacks), and recommend on the raw ratings (exact in bf16) in 'rhs',
+    # the scoring shape of the Makefile's bench-scoring, with the fold
+    high = dict(compute_dtype="float32", precision="high")
+    Wh = call("cosine_high", "cosine(bm25(urm).T, k=100), precision='high'",
+              lambda: sim.cosine(urm_n.T, k=100, **high, **common), "symmetric")
+    recs_high = call("recommend_high", "recommend(urm, W, k=10), precision='high'",
+                     lambda: sim.recommend(urm, W, k=10, target_rows=users, **high, **common),
+                     "general")
+    for key, mode in (("cosine_high", "both"), ("recommend_high", "rhs")):
+        if calls[key]["plan"]["f32x3"] != mode:
+            raise AssertionError(f"{key} ran split mode {calls[key]['plan']['f32x3']}, not {mode}")
+    if calls["recommend_high"]["plan"]["fold"] is None:
+        raise AssertionError("recommend(urm, W), precision='high': the fold did not arm")
 
     # checks
     checks = {}
@@ -678,6 +766,21 @@ def phase_main(torch, sim, counters, ex, urm, dev):
     usample = np.sort(rng.choice(users, N_ORACLE_ROWS, replace=False))
     _check_oracle("recommend", recs, usample,
                   _oracle_rows(urm_n, W.T, usample, 10, l2=False, filt=urm_n))
+    # precision='high' against the float64 oracle and against 'highest'
+    _check_oracle("cosine, precision='high'", Wh, sample,
+                  _oracle_rows(item_t, urm_n, sample, 100, l2=True))
+    _check_oracle("recommend(urm), precision='high'", recs_high, usample,
+                  _oracle_rows(urm, W.T, usample, 10, l2=False, filt=urm))
+    high_vs_highest = {}
+    for name, got, ref in (("cosine", Wh, W), ("recommend", recs_high, recs_raw)):
+        got, ref = got.tocsr(), ref.tocsr()
+        if got.nnz != ref.nnz:
+            raise AssertionError(f"{name}, precision='high': nnz {got.nnz} vs {ref.nnz}")
+        np.testing.assert_allclose(check_sum(got), check_sum(ref), rtol=1e-4,
+                                   err_msg=f"{name}, precision='high': check_sum vs 'highest'")
+        high_vs_highest[name] = {"nnz": int(got.nnz),
+                                 "check_sum_rel": abs(check_sum(got) / check_sum(ref) - 1.0)}
+    checks["high_vs_highest"] = high_vs_highest
     checks["oracle_s"] = time.perf_counter() - t
 
     # the symmetric route against the general route on the same rows
@@ -719,6 +822,12 @@ def phase_main(torch, sim, counters, ex, urm, dev):
             s = set(seen.indices[seen.indptr[r]:seen.indptr[r + 1]].tolist())
             g = recs_u.indices[recs_u.indptr[r]:recs_u.indptr[r + 1]].tolist()
             if s.intersection(g):
+                raise AssertionError(f"{name}: user {users[r]} got a seen item")
+    for name, res in (("recommend, precision='high'", recs_high),):
+        recs_u = res.tocsr()[users]
+        for r in range(users.shape[0]):
+            s = set(seen.indices[seen.indptr[r]:seen.indptr[r + 1]].tolist())
+            if s.intersection(recs_u.indices[recs_u.indptr[r]:recs_u.indptr[r + 1]].tolist()):
                 raise AssertionError(f"{name}: user {users[r]} got a seen item")
     state = {"urm_n": urm_n, "W": W, "users": users, "items": items, "pop_t": pop_t,
              "t8k": t8k, "plans": {k: c["plan"] for k, c in calls.items()},
@@ -1043,15 +1152,47 @@ def _profile(torch, fn):
             "idle_share": (1.0 - busy / wall_ms) if busy else None, "top": top}
 
 
+def _mm_f32(torch, a, b):
+    """One cuBLAS bf16 product with an f32 result: torch.mm's out_dtype
+    where the installed torch has it, else the bf16 product widened (what
+    LIBRARY_BF16_MM says was used)."""
+    global LIBRARY_BF16_MM
+    if LIBRARY_BF16_MM != "torch.matmul(bf16).float()":
+        try:
+            out = torch.mm(a, b, out_dtype=torch.float32)
+            LIBRARY_BF16_MM = "torch.mm(bf16, bf16, out_dtype=float32)"
+            return out
+        except (TypeError, RuntimeError):  # no out_dtype in this torch
+            LIBRARY_BF16_MM = "torch.matmul(bf16).float()"
+    return torch.matmul(a, b).float()
+
+
+LIBRARY_BF16_MM = None
+
+
+def _split_library(torch, a, d, split, u_pad):
+    """The library chain's product of a split mode: its phases, each one
+    cuBLAS bf16 product with an f32 result, summed."""
+    a_hi, a_lo = (a[:, :u_pad], a[:, u_pad:]) if split in ("both", "lhs") else (a, None)
+    d_hi, d_lo = (d[:u_pad], d[u_pad:]) if split in ("both", "rhs") else (d, None)
+    xy = _mm_f32(torch, a_hi, d_hi)
+    if a_lo is not None:
+        xy += _mm_f32(torch, a_lo, d_hi)
+    if d_lo is not None:
+        xy += _mm_f32(torch, a_hi, d_lo)
+    return xy
+
+
 def _bound(ops, nbytes, int8, peak=None):
     ops_ms = 1e3 * ops / (peak or (PEAK_INT8_OPS if int8 else PEAK_F32_FLOPS))
     bytes_ms = 1e3 * nbytes / PEAK_BYTES
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def _time_k1(torch, tt, panel, tile, plan, int8):
+def _time_k1(torch, tt, panel, tile, plan, int8, split=None):
     """K1 (kernel, plain, library yardstick) on one panel x tile of the
-    main path, as cosine, checked against the plain version."""
+    main path, as cosine, checked against the plain version; `split`
+    ('both', 'rhs') runs that split-bf16x3 mode on the f32 operands."""
     dev = torch.device("cuda")
     trp, u_pad, tc, k_pad = plan["trp"], plan["u_pad"], plan["tc"], plan["k_pad"]
     dtype = torch.int8 if int8 else torch.float32
@@ -1067,6 +1208,9 @@ def _time_k1(torch, tt, panel, tile, plan, int8):
     xn, yn = torch.sqrt((a32 * a32).sum(1)), torch.sqrt((d32 * d32).sum(0))
     scale = 2.0 if int8 else 1.0  # half-star ratings integerize at 2
     a, d = (a32 * scale).to(dtype), (d32 * scale).to(dtype)
+    if split:
+        a = tt.split_bf16x3(a32, 1) if split in ("both", "lhs") else a32.bfloat16()
+        d = tt.split_bf16x3(d32, 0) if split in ("both", "rhs") else d32.bfloat16()
     del a32, d32
     ones_r, ones_c = torch.ones_like(xn), torch.ones_like(yn)
     pvec = torch.zeros(16, device=dev)
@@ -1077,9 +1221,19 @@ def _time_k1(torch, tt, panel, tile, plan, int8):
              torch.zeros((k_pad, trp), dtype=torch.int32, device=dev))
     args = (a, d, ones_r, xn, ones_r, ones_c, yn, ones_c, pvec)
     kw = dict(carry=carry, flags=flags, k_pad=k_pad, int8_mode=int8)
+    if split:
+        kw["split_f32"] = split
     got = [t.cpu().numpy() for t in tt.fused_tile_topk(*args, **kw)]
     ref = [t.cpu().numpy() for t in tt.fused_tile_topk_plain(*args, **kw)]
-    err = _compare("times K1", "int8" if int8 else "f32", got, ref)
+    if split:
+        from torch_k1_cases import SPLIT_RTOL_FULL_K, assert_same_split
+
+        assert_same_split(got, ref, flags, SPLIT_RTOL_FULL_K)
+        fin = np.isfinite(ref[0])
+        err = float(np.max(np.abs(got[0][fin] - ref[0][fin]))) if fin.any() else 0.0
+    else:
+        err = _compare("times K1", "int8" if int8 else "f32", got, ref)
+    rel = _rel_err(got[0], ref[0])
 
     kernel_ms = _time_ms(torch, lambda: tt.fused_tile_topk(*args, **kw), 5)
     launches = _profile(torch, lambda: tt.fused_tile_topk(*args, **kw))
@@ -1087,52 +1241,64 @@ def _time_k1(torch, tt, panel, tile, plan, int8):
     if int8:
         def library():
             return torch.topk(torch._int_mm(a, d), k_pad, dim=1)
+    elif split:
+        def library():
+            return torch.topk(_split_library(torch, a, d, split, u_pad), k_pad, dim=1)
     else:
         def library():
             return torch.topk(torch.matmul(a, d), k_pad, dim=1)
     library_ms = _time_ms(torch, library, 5)
-    item = a.element_size()
-    nbytes = item * (trp * u_pad + u_pad * tc) + 4.0 * (3 * trp + 3 * tc + 16 + 4 * k_pad * trp)
-    bound_ms, bound_by = _bound(2.0 * trp * u_pad * tc, nbytes, int8)
+    # operand bytes as stored (a split stack's two halves), each read once
+    nbytes = (a.numel() * a.element_size() + d.numel() * d.element_size()
+              + 4.0 * (3 * trp + 3 * tc + 16 + 4 * k_pad * trp))
+    phases = {None: 1, "both": 3, "rhs": 2, "lhs": 2}[split]
+    ops = 2.0 * trp * u_pad * tc * phases  # every phase's products
+    bound_ms, bound_by = _bound(ops, nbytes, int8, PEAK_BF16_FLOPS if split else None)
     return {
         "shape": {"trp": trp, "u_pad": u_pad, "tc": tc, "k_pad": k_pad,
-                  "dtype": "int8" if int8 else "float32"},
+                  "dtype": f"split-bf16x3 {split}" if split else "int8" if int8 else "float32"},
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_chain": LIBRARY_BF16_MM if split else None,
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "kernel_tops": 2.0 * trp * u_pad * tc / kernel_ms / 1e9, "max_abs_err": err,
+        "kernel_tops": ops / kernel_ms / 1e9, "max_abs_err": err, "max_rel_err": rel,
         "profile": launches, "split": _tile_split(launches),
     }
 
 
-def _sym_setup(torch, m_items, compute_dtype, plan, **prep):
+def _sym_setup(torch, m_items, compute_dtype, plan, split=False, **prep):
     """The main path's symmetric geometry for `m_items` (items x users):
-    its cached device COO and vectors, as the executor holds them."""
+    its cached device COO and vectors, as the executor holds them (with
+    `split`, the COO of the [hi; lo] stacks)."""
     from similaripy_tpu_torch.engine import symmetric
     from similaripy_tpu_torch.engine.preprocess import preprocess
 
     dev = torch.device("cuda")
     pre = preprocess(m_items, m_items.T, k=100, self_similar=True, **prep)
     coo, vecs, _ = symmetric.cached_prep_symmetric(
-        pre, compute_dtype, plan["tc"], plan["n_tiles"], plan["u_pad"], dev)
+        pre, compute_dtype, plan["tc"], plan["n_tiles"], plan["u_pad"], dev, split)
     return coo, vecs
 
 
 def _time_k2(torch, st, sc, coo, vecs, plan, params, mode, diagonal):
-    """K2 on one block of the main path in `mode` (f32, bf16 or int8): the
-    first anchor group against a live tile right of it, or against its own
-    first tile (diagonal)."""
+    """K2 on one block of the main path in `mode` (f32, bf16, int8, or
+    split: the split-bf16x3 mode of precision='high', `coo` the split
+    COO): the first anchor group against a live tile right of it, or
+    against its own first tile (diagonal)."""
     from similaripy_tpu_torch.engine.params import build_pvec
 
     dev = torch.device("cuda")
     tc, gt, u_pad, k_pad = plan["tc"], plan["gt"], plan["u_pad"], plan["k_pad"]
     sw = gt * tc
-    int8 = mode == "int8"
-    cdt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[mode]
+    int8, split = mode == "int8", mode == "split"
+    cdt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8,
+           "split": torch.bfloat16}[mode]
+    tile_k = 2 * u_pad if split else u_pad  # a split tile's [hi; lo] rows
     anchors = sc.densify_tiles(coo["ru"][:gt], coo["sl"][:gt], coo["vv"][:gt],
-                               u_pad=u_pad, tc=tc, cdt=cdt)
+                               u_pad=tile_k, tc=tc, cdt=cdt)
     t = 0 if diagonal else plan["n_tiles"] - 1
     d = anchors[0] if diagonal else sc.densify_tiles(
-        coo["ru"][t:t + 1], coo["sl"][t:t + 1], coo["vv"][t:t + 1], u_pad=u_pad, tc=tc, cdt=cdt)[0]
+        coo["ru"][t:t + 1], coo["sl"][t:t + 1], coo["vv"][t:t + 1], u_pad=tile_k, tc=tc,
+        cdt=cdt)[0]
     pv = np.zeros(16, np.float32)
     pv[:10] = build_pvec(params, 0.25 if int8 else 1.0)
     pv[10:14] = (t * tc, 0, t, 0)
@@ -1144,11 +1310,20 @@ def _time_k2(torch, st, sc, coo, vecs, plan, params, mode, diagonal):
     y = [vecs[f"y_{n}"][t] for n in "tcd"]
     args = (anchors, d, *x, *y, crv, cri, crv[k_pad - 1].view(sw, 1), ccv, cci,
             torch.from_numpy(pv).to(dev))
-    kw = dict(flags=params.static_flags(), k=k_pad, tc=tc, int8_mode=int8)
+    kw = dict(flags=params.static_flags(), k=k_pad, tc=tc, int8_mode=int8, split_f32=split)
     got = [o.cpu().numpy() for o in st.fused_sym_topk(*args, **kw)]
     ref = [o.cpu().numpy() for o in st.fused_sym_topk_plain(*args, **kw)]
-    err = max(_compare(f"times K2 {side}", mode, got[s], ref[s])
-              for side, s in (("row", slice(0, 2)), ("col", slice(2, 4))))
+    if split:  # ids not compared across the top-k's cut (tests/torch_k2_cases.py)
+        from torch_k1_cases import SPLIT_RTOL_FULL_K
+        from torch_k2_cases import assert_same
+
+        assert_same("split", got, ref, kw["flags"], SPLIT_RTOL_FULL_K)
+        err = max(float(np.max(np.abs(got[s][np.isfinite(ref[s])] - ref[s][np.isfinite(ref[s])]),
+                               initial=0.0)) for s in (0, 2))
+    else:
+        err = max(_compare(f"times K2 {side}", mode, got[s], ref[s])
+                  for side, s in (("row", slice(0, 2)), ("col", slice(2, 4))))
+    rel = max(_rel_err(got[0], ref[0]), _rel_err(got[2], ref[2]))
 
     kernel_ms = _time_ms(torch, lambda: st.fused_sym_topk(*args, **kw), 5)
     launches = _profile(torch, lambda: st.fused_sym_topk(*args, **kw))
@@ -1156,13 +1331,17 @@ def _time_k2(torch, st, sc, coo, vecs, plan, params, mode, diagonal):
     from similaripy_tpu_torch.engine.tile_topk import splus_epilogue
 
     pvl = pv.tolist()
-    a2 = anchors.transpose(1, 2).reshape(sw, u_pad)  # (sw, u_pad), a view for gt = 1
+    a2 = anchors.transpose(1, 2).reshape(sw, tile_k)  # (sw, tile_k), a view for gt = 1
     if int8:
         a2 = a2.contiguous()  # cuBLASLt's int8 product takes row-major operands
 
     def library():
         if int8:
             xy = torch._int_mm(a2, d).float() * pvl[9]
+        elif split:
+            xy = _split_library(torch, a2, d, "both", u_pad)
+        elif mode == "bf16":
+            xy = _mm_f32(torch, a2, d)
         else:
             xy = torch.matmul(a2, d).float()
         val = splus_epilogue(xy, xy != 0, *x, *y, pvl, kw["flags"])
@@ -1170,19 +1349,20 @@ def _time_k2(torch, st, sc, coo, vecs, plan, params, mode, diagonal):
 
     library_ms = _time_ms(torch, library, 3)
     n_live = min((t + 1) * tc, sw)  # every anchor row is live here (t >= a0 = 0)
-    ops = 2.0 * n_live * tc * u_pad
+    ops = 2.0 * n_live * tc * u_pad * (3 if split else 1)  # a split block's three phases
     item = anchors.element_size()
-    nbytes = (item * (sw * u_pad + u_pad * tc) + 4.0 * (6 * sw + 6 * tc + 16)
+    nbytes = (item * (sw * tile_k + tile_k * tc) + 4.0 * (6 * sw + 6 * tc + 16)
               + 2 * 8.0 * k_pad * (sw + tc))  # carries in and out, values and ids
     bound_ms, bound_by = _bound(ops, nbytes, int8,
-                                PEAK_BF16_FLOPS if mode == "bf16" else None)
+                                PEAK_BF16_FLOPS if mode in ("bf16", "split") else None)
     return {
         "block": "diagonal" if diagonal else "live off-diagonal",
         "shape": {"sw": sw, "tc": tc, "u_pad": u_pad, "k_pad": k_pad, "t": t,
-                  "dtype": str(cdt).replace("torch.", "")},
+                  "dtype": "split-bf16x3 both" if split else str(cdt).replace("torch.", "")},
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_chain": LIBRARY_BF16_MM if mode in ("bf16", "split") else None,
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "kernel_tops": ops / kernel_ms / 1e9, "max_abs_err": err,
+        "kernel_tops": ops / kernel_ms / 1e9, "max_abs_err": err, "max_rel_err": rel,
         "profile": launches, "split": _k2_split(launches),
     }
 
@@ -1197,7 +1377,7 @@ def _k2_split(profile):
             key = "row_merge_ms"
         elif "merge_kernel<false>" in name:
             key = "col_merge_ms"
-        elif "sym_simt_kernel" in name or "sym_s8_kernel" in name:
+        elif any(k in name for k in ("sym_simt_kernel", "sym_s8_kernel", "sym_bf16_kernel")):
             key = "product_ms"
         else:
             continue
@@ -1213,7 +1393,7 @@ def _tile_split(profile):
     for name, v in profile["top"].items():
         if "topk_kernel" in name:
             key = "topk_ms"
-        elif "tile_s8_kernel" in name or "tile_simt_kernel" in name:
+        elif any(k in name for k in ("tile_s8_kernel", "tile_simt_kernel", "tile_bf16_kernel")):
             key = "product_ms"
         else:
             continue
@@ -1375,6 +1555,12 @@ def phase_times(torch, sim, tt, st, sc, urm, state):
     coo, vecs = _sym_setup(torch, urm_n.T.tocsr(), "bfloat16", plans["cosine"], **cos_prep)
     out["K2_bf16_live"] = _time_k2(torch, st, sc, coo, vecs, plans["cosine"], cos, "bf16", False)
     del coo, vecs
+    # precision='high': the split-bf16x3 block of the 'high' build's plan
+    coo, vecs = _sym_setup(torch, urm_n.T.tocsr(), "float32", plans["cosine_high"], split=True,
+                           **cos_prep)
+    out["K2_split_live"] = _time_k2(torch, st, sc, coo, vecs, plans["cosine_high"], cos, "split",
+                                    False)
+    del coo, vecs
     coo, vecs = _sym_setup(torch, urm.T.tocsr(), "int8", plans["cosine_int8"], **cos_prep)
     out["K2_int8_live"] = _time_k2(torch, st, sc, coo, vecs, plans["cosine_int8"], cos, "int8",
                                    False)
@@ -1385,9 +1571,11 @@ def phase_times(torch, sim, tt, st, sc, urm, state):
     emit({"phase": "times_k2_split",
           "blocks": {k: {**out[k]["split"], "kernel_ms": out[k]["kernel_ms"],
                          "tops": out[k]["kernel_tops"]}
-                     for k in ("K2_f32_live", "K2_f32_diagonal", "K2_bf16_live", "K2_int8_live")},
-          "product_kernels": {str(dt).replace("torch.", ""): st.product_attrs(dt)
-                              for dt in (torch.float32, torch.bfloat16, torch.int8)}})
+                     for k in ("K2_f32_live", "K2_f32_diagonal", "K2_bf16_live", "K2_split_live",
+                               "K2_int8_live")},
+          "product_kernels": {**{str(dt).replace("torch.", ""): st.product_attrs(dt)
+                                 for dt in (torch.float32, torch.bfloat16, torch.int8)},
+                              "split": st.product_attrs(torch.bfloat16, split=True)}})
     # where a warm symmetric call's wall goes, and the device's idle share
     out["asymmetric_cosine_profile"] = _profile(torch, lambda: sim.asymmetric_cosine(
         state["pop_t"], alpha=0.3, k=100, verbose=False, device="cuda"))
@@ -1401,9 +1589,19 @@ def phase_times(torch, sim, tt, st, sc, urm, state):
                               plans["cosine_int8_targeted"], True)
     out["K1_f32_recommend"] = _time_k1(torch, tt, urm_n.tocsr()[state["users"]],
                                        state["W"].T.tocsc(), plans["recommend"], False)
+    # precision='high': 'both' on the cosine tile (both sides float), 'rhs'
+    # on the 'high' recommend's tile (raw ratings exact in bf16, W float)
+    out["K1_split_both"] = _time_k1(torch, tt, urm_n.T.tocsr()[items], urm_n.tocsc(),
+                                    plans["cosine_targeted"], False, split="both")
+    out["K1_split_rhs"] = _time_k1(torch, tt, urm.tocsr()[state["users"]],
+                                   state["W"].T.tocsc(), plans["recommend_high"], False,
+                                   split="rhs")
     dtypes = (torch.float32, torch.bfloat16, torch.int8)
-    _split_line("times_k1_split", out, ("K1_f32", "K1_int8", "K1_f32_recommend"),
-                {str(dt).replace("torch.", ""): tt.product_attrs(dt) for dt in dtypes})
+    _split_line("times_k1_split", out, ("K1_f32", "K1_int8", "K1_f32_recommend",
+                                        "K1_split_both", "K1_split_rhs"),
+                {**{str(dt).replace("torch.", ""): tt.product_attrs(dt) for dt in dtypes},
+                 **{f"split_{s}": tt.product_attrs(torch.bfloat16, split=s)
+                    for s in ("both", "rhs", "lhs")}})
     # K3 and K4 on the 8,192-item cosine's largest cold bucket, f32 and int8
     # (the same panel: plan_compact reads only the sparsity structure);
     # the engine caches are dropped first to make room for a full group
@@ -1710,13 +1908,18 @@ def main() -> int:
     launches = {k: sum(c["launches"][k] for c in main_path["calls"] + mesh_calls)
                 for k in KERNELS if k not in PROBE_KERNELS}
     launches.update(probes["path"]["launches"])
+    for name, base in SPLIT_KERNELS.items():
+        launches[name] = sum(c["launches"][base] for c in main_path["calls"]
+                             if c["plan"].get("f32x3"))
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path or the probe path never launched: "
                              f"{launches}")
     timed = {"tile_topk": times["K1_f32"], "sym_topk": times["K2_f32_live"],
              "scatter": times["K5_f32"], "panel_topk": times["K3_f32"],
              "gather": times["K4_f32"], "probe_tlhs": probes["P1_int8"],
-             "probe_int_mma": probes["P2_int8"]}
+             "probe_int_mma": probes["P2_int8"],
+             "tile_topk:split-bf16x3": times["K1_split_both"],
+             "sym_topk:split-bf16x3": times["K2_split_live"]}
     errs = {
         "tile_topk": max(times["K1_f32"]["max_abs_err"], times["K1_int8"]["max_abs_err"],
                          times["K1_f32_recommend"]["max_abs_err"],
@@ -1734,7 +1937,13 @@ def main() -> int:
         # P1 is bit-equal on integer data; its f32 errors on normal data
         "probe_tlhs": max(probes["parity"]["max_abs_err"], probes["P1_float32"]["max_abs_err"]),
         "probe_int_mma": 0.0,
+        "tile_topk:split-bf16x3": max(times["K1_split_both"]["max_abs_err"],
+                                      times["K1_split_rhs"]["max_abs_err"],
+                                      *parity["K1"]["split"]["max_abs_err"].values()),
+        "sym_topk:split-bf16x3": max(times["K2_split_live"]["max_abs_err"],
+                                     parity["K2"]["max_abs_err"]["split"]),
     }
+    sources = {**KERNELS, **{name: KERNELS[base] for name, base in SPLIT_KERNELS.items()}}
     emit({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -1747,7 +1956,7 @@ def main() -> int:
         "bound_ms": timed[name]["bound_ms"],
         "bound_by": timed[name]["bound_by"],
         "library_ms": timed[name]["library_ms"],
-    } for name, (source, replaces) in KERNELS.items()]})
+    } for name, (source, replaces) in sources.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -20,9 +20,9 @@ reverse. Exit code 1 on any mismatch.
 
 Where a variant sets a TPU planning knob the port does not have
 (``SIMILARIPY_TPU_SYM_TC`` / ``SIMILARIPY_TPU_SYM_GT``) it runs at the
-port's own plan, and ``precision="high"`` runs true f32 here (the
-split-bf16x3 sweep is not ported): the labels say so. ``--device cpu`` runs
-the same sweep on the CPU, where both sides are the plain versions.
+port's own plan: the labels say so. ``precision="high"`` runs the
+split-bf16x3 modes, as the reference's does. ``--device cpu`` runs the
+same sweep on the CPU, where both sides are the plain versions.
 """
 
 from __future__ import annotations
@@ -130,10 +130,10 @@ def sweep_variants(sim, m, mf, filt, tgt, quick: bool = False, **kw):
         ("sym asym-cosine", lambda: sim.asymmetric_cosine(m, alpha=0.2, k=50, **common), 1e-5),
         ("sym rp3beta (refactored)",
          lambda: sim.rp3beta(m, alpha=0.7, beta=0.4, k=50, **common), 1e-5),
-        ("sym cosine f32-high [true f32]",
+        ("sym cosine f32-high",
          lambda: sim.cosine(mf, k=50, compute_dtype="float32", precision="high", **common),
          1e-4),
-        ("sym tversky asym f32-high [true f32]",
+        ("sym tversky asym f32-high",
          lambda: sim.tversky(mf, alpha=0.2, beta=0.9, k=50, compute_dtype="float32",
                              precision="high", **common), 1e-4),
         ("sym k>tile-width int8 [port plan, no SYM_TC=128]",
@@ -147,19 +147,19 @@ def sweep_variants(sim, m, mf, filt, tgt, quick: bool = False, **kw):
         ("gen cosine f32 (target_rows)",
          lambda: sim.cosine(mf, k=50, compute_dtype="float32", target_rows=np.arange(0, C, 2),
                             **common), 1e-5),
-        ("gen cosine f32-high (target_rows) [true f32]",
+        ("gen cosine f32-high (target_rows)",
          lambda: sim.cosine(mf, k=50, compute_dtype="float32", precision="high",
                             target_rows=np.arange(0, C, 2), **common), 1e-4),
         ("gen filter+target masks int8",
          lambda: sim.cosine(m, m.T.tocsr(), k=50, filter_cols=filt, target_cols=tgt,
                             **common), 0),
-        ("gen f32-high int x float [true f32]",
+        ("gen f32-high int x float",
          lambda: sim.dot_product(m, mf.T.tocsr(), k=50, compute_dtype="float32",
                                  precision="high", **common), 1e-4),
-        ("gen f32-high float x int [true f32]",
+        ("gen f32-high float x int",
          lambda: sim.dot_product(mf, m.T.tocsr(), k=50, compute_dtype="float32",
                                  precision="high", **common), 1e-4),
-        ("gen f32-high int x float tc=4224 [true f32]",
+        ("gen f32-high int x float tc=4224",
          lambda: sim.dot_product(m, mf.T.tocsr(), k=50, compute_dtype="float32",
                                  precision="high", block_size=4224, **common), 1e-4),
     ]

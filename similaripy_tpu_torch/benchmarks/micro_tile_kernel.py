@@ -12,9 +12,9 @@ every candidate. ``--fresh`` feeds a cold carry to every call instead, so
 that the top-k runs at its worst case; the two bracket a real run's top-k
 cost. Operands are made on the card as the reference script makes them: a
 ~17% dense panel of values 1..9 and a ~0.1% dense tile whose entries are
-the reference's split [hi; lo] halves added back into one f32 value (the
-port multiplies in true f32, so the tile is one f32 matrix, not two bf16
-ones). Prints ms per product (3 rounds of ``reps`` by CUDA events) and K1's
+the reference's split [hi; lo] halves added back into one f32 value: this
+script times K1's true-f32 product on one f32 tile (chip_smoke.py times
+the split modes themselves). Prints ms per product (3 rounds of ``reps`` by CUDA events) and K1's
 f32 bound for the shape, 2 * trp * u_pad * tc over the card's 67 TFLOP/s
 of f32 FMA (H100 SXM data sheet).
 """

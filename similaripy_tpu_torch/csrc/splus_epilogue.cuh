@@ -14,7 +14,12 @@
 #include <math.h>
 #include <stdint.h>
 
-enum Mode { MODE_F32 = 0, MODE_BF16 = 1, MODE_INT8 = 2 };
+// the product's operand modes; the split modes take bf16 [hi; lo] stacks
+// (tensor_core.cuh: Split)
+enum Mode {
+  MODE_F32 = 0, MODE_BF16 = 1, MODE_INT8 = 2,
+  MODE_SPLIT_BOTH = 3, MODE_SPLIT_RHS = 4, MODE_SPLIT_LHS = 5
+};
 
 // epilogue flags, the order of SPlusParams.static_flags()
 enum Flag {

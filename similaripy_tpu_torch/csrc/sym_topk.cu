@@ -27,8 +27,9 @@
 // (sw = tc = 2,048 f32, 4,096 int8; K = 200,960) it does ~500 (f32) to
 // ~4,000 (int8) operations per byte of the anchors and the tile, against
 // peaks (NVIDIA's data sheet, dense, at the 700 W limit) of 67 TFLOP/s of
-// f32 FMA outside the tensor cores for f32 and bf16 (bf16 operands, f32
-// products) and 1,979 TOP/s of int8 on the tensor cores.
+// f32 FMA outside the tensor cores for f32, 989 TFLOP/s of bf16 on the
+// tensor cores for bf16 and the split-bf16x3 mode (3 phases: a third of
+// that rate in f32 operations), and 1,979 TOP/s of int8 on the tensor cores.
 //
 // Three launches:
 //   1. the product with the fused epilogue, one output block per thread
@@ -40,12 +41,26 @@
 //      barrier per slab. The epilogue writes the row-side scores (sw x tc)
 //      and, for rows with rt < t, the col-side scores transposed (tc x sw)
 //      to scratch that the wrapper allocates.
-//        f32, bf16  sym_simt_kernel: 128 x 128 blocks, SIMT FMA, 8 x 8
+//        f32        sym_simt_kernel: 128 x 128 blocks, SIMT FMA, 8 x 8
 //                   outputs a thread, 32 K rows a slab; the (K, tc) slab is
 //                   already the outer product's layout. Each output is one
 //                   in-order fmaf chain over k (no split, no TF32), so the
-//                   scores are those of the plain loop; bf16 is widened
-//                   exactly on the way out of shared memory.
+//                   scores are those of the plain loop. (The kernel is
+//                   written for bf16 too, which no launch instantiates.)
+//        bf16 and   sym_bf16_kernel: 128 x 128 blocks, mma.sync m16n8k16
+//        split      bf16 -> f32, 8 warps of 64 x 32, 64 K rows a slab, 3
+//                   slabs. Both slabs are (k, 128 columns) rows of 256
+//                   bytes, chunks XOR-swizzled by the row's low 3 bits, and
+//                   ldmatrix .trans reads both the A fragments (anchor rows
+//                   are the anchor tile's columns) and the B fragments; a
+//                   16-bit .trans needs no byte shuffle, unlike int8. The
+//                   split-bf16x3 mode (precision='high' on f32 data;
+//                   pallas_kernels.py::split_bf16x3) takes [hi; lo] tiles of
+//                   2K rows, lo at row K: a stage holds the hi and the lo slab
+//                   of both operands for one K range, and each k16 step runs
+//                   hi.hi, lo.hi and hi.lo into the same accumulators from
+//                   fragments read once. A slab's sums go to a zeroed partial
+//                   that joins the f32 total once per slab.
 //        int8       sym_s8_kernel: 128 x 256 blocks, mma.sync m16n8k32 s8
 //                   -> s32 (exact), 8 warps of 64 x 64, 128 K bytes a slab,
 //                   one block per SM (128 accumulators a thread). mma.sync
@@ -85,6 +100,9 @@ constexpr int THREADS = 256;  // 8 warps
 constexpr int STAGES = 3;     // slabs in the shared-memory ring
 constexpr int FBK = 32;       // f32 / bf16: K rows per slab
 constexpr int IBK = 128;      // int8: K bytes per slab, four k32 steps
+constexpr int TBK = 64;       // bf16 tensor cores: K rows per slab, four k16 steps
+constexpr int T_STAGES = 3;   // bf16 tensor cores: slabs in the ring
+constexpr int T_HALF = TBK * BM * 2;  // bytes of one half (hi or lo) of one operand's slab
 constexpr int MERGE_THREADS = 512;
 constexpr int MAX_CHUNK = 16384;  // candidates sorted at once (128 KB of keys)
 constexpr int MAX_SMEM = 227 * 1024;
@@ -259,6 +277,120 @@ __global__ void __launch_bounds__(THREADS, 2) sym_simt_kernel(
     cols[i] = n0 + strip(tx, i);
   }
   epilogue(e, sw, tc, n_live, n_col, rows, cols, [&](int i, int j) { return acc[i][j]; });
+}
+
+// ---------------------------------------------------------------------------
+// bf16 and the split-bf16x3 mode: mma.sync m16n8k16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+template <int SPLIT>
+constexpr size_t bf16_smem() { return (size_t)T_STAGES * 2 * (SPLIT == SPLIT_BOTH ? 2 : 1) * T_HALF; }
+
+// One 128 x 128 block: 8 warps of 64 x 32 (4 m16 x 4 n8 tiles), 64 f32
+// accumulators and 64 of the slab's partial sums a thread, one block an SM.
+// `K` is the depth of one half: with SPLIT_BOTH every stored tile holds 2K
+// rows, the lo half from row K.
+template <int SPLIT>
+__global__ void __launch_bounds__(THREADS, 1) sym_bf16_kernel(
+    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ d, int sw, int K,
+    int tc, Epi e) {
+  constexpr int HALVES = SPLIT == SPLIT_BOTH ? 2 : 1;
+  constexpr int OPERAND = HALVES * T_HALF;  // one operand's slab, both halves
+  constexpr int COPIES = T_HALF / 16 / THREADS;
+  constexpr int ROW_CHUNKS = BM * 2 / 16;   // 16-byte chunks in a slab row
+  extern __shared__ __align__(16) unsigned char smem[];  // [T_STAGES][A hi, A lo, D hi, D lo]
+
+  const int n_live = live_rows(e.pvec, sw, tc);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  if (m0 >= n_live) return;  // below the band: the merge passes the carry
+  const int n_col = col_rows(e.pvec, sw, tc);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+
+  // the block's anchor rows are columns m0 % tc .. + 128 of anchor tile
+  // m0 / tc (HALVES * K rows of tc); its tile columns n0 .. n0 + 128 of d
+  const __nv_bfloat16* ab = a + (size_t)(m0 / tc) * HALVES * K * tc + m0 % tc;
+  const __nv_bfloat16* db = d + n0;
+  const int n_slabs = (K + TBK - 1) / TBK;
+
+  auto fetch = [&](int s) {
+    if (s < n_slabs) {
+      unsigned char* st = smem + (s % T_STAGES) * 2 * OPERAND;
+#pragma unroll
+      for (int h = 0; h < HALVES; ++h) {
+#pragma unroll
+        for (int i = 0; i < COPIES; ++i) {
+          const int c = tid + i * THREADS, row = c / ROW_CHUNKS, ch = c % ROW_CHUNKS;
+          const int k = s * TBK + row;
+          const bool full = k < K;
+          const size_t off = (size_t)(h * K + k) * tc + ch * 8;
+          cp_async16(st + h * T_HALF + kn_swz(row, ch), full ? ab + off : a, full);
+          cp_async16(st + OPERAND + h * T_HALF + kn_swz(row, ch), full ? db + off : d, full);
+        }
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < T_STAGES - 1; ++s) fetch(s);
+  for (int s = 0; s < n_slabs; ++s) {
+    cp_async_wait<T_STAGES - 2>();  // slab s is in
+    __syncthreads();                // ... for every thread, and slab s - 1 is done with
+    fetch(s + T_STAGES - 1);        // into slab s - 1's place
+    const unsigned char* sa = smem + (s % T_STAGES) * 2 * OPERAND;
+    const unsigned char* sd = sa + OPERAND;
+    float part[4][4][4];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[mi][ni][q] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < TBK; ks += 16) {
+      uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        ldsm_a_km(ah[mi], sa, ks, wm + 16 * mi, lane);
+        if constexpr (HALVES == 2) ldsm_a_km(al[mi], sa + T_HALF, ks, wm + 16 * mi, lane);
+      }
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {
+        ldsm_b_pair(bh[2 * nj], bh[2 * nj + 1], sd, ks, wn + 16 * nj, lane);
+        if constexpr (HALVES == 2)
+          ldsm_b_pair(bl[2 * nj], bl[2 * nj + 1], sd + T_HALF, ks, wn + 16 * nj, lane);
+      }
+      mma_split<SPLIT>(part, ah, al, bh, bl);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mi][ni][q] += part[mi][ni][q];
+  }
+  cp_async_wait<0>();
+
+  // C row g + 8 hh of m-tile mi is anchor row wm + 16 mi + 8 hh + g; C
+  // column 2 tig + jj of n-tile ni is tile column wn + 8 ni + 2 tig + jj
+  int rows[8], cols[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) rows[i] = m0 + wm + 16 * (i >> 1) + 8 * (i & 1) + g;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) cols[j] = n0 + wn + 8 * (j >> 1) + 2 * tig + (j & 1);
+  epilogue(e, sw, tc, n_live, n_col, rows, cols, [&](int i, int j) {
+    return acc[i >> 1][j >> 1][2 * (i & 1) + (j & 1)];
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -564,7 +696,8 @@ extern "C" {
 // scores_c (tc x sw). `vecs` holds twelve f32 pointers: xt xc
 // xd (sw), yt yc yd (tc), then x2t x2c x2d (tc) y2t y2c y2d (sw), the last
 // six null unless the epilogue is asymmetric. mode 0 = f32, 1 = bf16,
-// 2 = int8. tc must be a multiple of 128 and a and d 16-byte aligned.
+// 2 = int8, 3 = split 'both' (bf16 [hi; lo] tiles of 2K rows; K is one
+// half's depth). tc must be a multiple of 128 and a and d 16-byte aligned.
 int sym_product(int mode, const void* a, const void* d, int sw, int K, int tc,
                 const void* const* vecs, const void* pvec, int flags,
                 void* scores_r, void* scores_c, void* stream) {
@@ -582,10 +715,13 @@ int sym_product(int mode, const void* a, const void* d, int sw, int K, int tc,
                                  static_cast<const float*>(a), static_cast<const float*>(d),
                                  sw, K, tc, e);
     case MODE_BF16:
-      return (int)launch_product(
-          sym_simt_kernel<__nv_bfloat16>, simt_smem<__nv_bfloat16>(), BN, sw, tc, s,
-          static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(d), sw, K,
-          tc, e);
+      return (int)launch_product(sym_bf16_kernel<SPLIT_NONE>, bf16_smem<SPLIT_NONE>(), BN, sw,
+                                 tc, s, static_cast<const __nv_bfloat16*>(a),
+                                 static_cast<const __nv_bfloat16*>(d), sw, K, tc, e);
+    case MODE_SPLIT_BOTH:
+      return (int)launch_product(sym_bf16_kernel<SPLIT_BOTH>, bf16_smem<SPLIT_BOTH>(), BN, sw,
+                                 tc, s, static_cast<const __nv_bfloat16*>(a),
+                                 static_cast<const __nv_bfloat16*>(d), sw, K, tc, e);
     case MODE_INT8:
       return (int)launch_product(sym_s8_kernel, S8_SMEM, S8_BN, sw, tc, s,
                                  static_cast<const int8_t*>(a), static_cast<const int8_t*>(d),
@@ -603,7 +739,9 @@ int sym_product_attrs(int mode, int* out) {
     case MODE_F32:
       return (int)kernel_attrs(sym_simt_kernel<float>, simt_smem<float>(), out);
     case MODE_BF16:
-      return (int)kernel_attrs(sym_simt_kernel<__nv_bfloat16>, simt_smem<__nv_bfloat16>(), out);
+      return (int)kernel_attrs(sym_bf16_kernel<SPLIT_NONE>, bf16_smem<SPLIT_NONE>(), out);
+    case MODE_SPLIT_BOTH:
+      return (int)kernel_attrs(sym_bf16_kernel<SPLIT_BOTH>, bf16_smem<SPLIT_BOTH>(), out);
     case MODE_INT8:
       return (int)kernel_attrs(sym_s8_kernel, S8_SMEM, out);
     default:

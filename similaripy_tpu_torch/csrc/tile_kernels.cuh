@@ -4,40 +4,62 @@
 //
 // Product: scores (M x N f32) = epilogue(A . D + bias), -inf where a cell is
 // no candidate or falls below the threshold. A is (M x K) row-major, D is
-// (K x N) row-major. Both stream through a ring of STAGES = 3 shared-memory
-// slabs, two slabs ahead of the one in use, with one barrier a slab; rows
-// past M, K rows past K and columns past N are zero-filled. Block (x, y) is
-// row block x of column block y, so the row blocks of one column block run
-// side by side and the second reads D from L2. With BIAS, `bias` (M x N,
-// f32, or int32 for int8) joins the sum before the epilogue, so int8 stays
-// exact until the single inverse-scale multiply. BIAS is a template
-// parameter, not a null test: a runtime test cost K1 1.2-1.9x on the card
-// (its register count rose). K1's file instantiates BIAS = false only, K3's
-// BIAS = true only (K3 without a bias calls K1's product).
+// (K x N) row-major. Both stream through a ring of shared-memory slabs, the
+// ring's depth less one slab ahead of the one in use, with one barrier a
+// slab; rows past M, K rows past K and columns past N are zero-filled.
+// Block (x, y) is row block x of column block y, so the row blocks of one
+// column block run side by side and the second reads D from L2. With BIAS,
+// `bias` (M x N, f32, or int32 for int8) joins the sum before the epilogue,
+// so int8 stays exact until the single inverse-scale multiply. BIAS is a
+// template parameter, not a null test: a runtime test cost K1 1.2-1.9x on
+// the card (its register count rose). K1's file instantiates BIAS = false
+// only, K3's BIAS = true only (K3 without a bias calls K1's product).
 //   int8       tile_s8_kernel: mma.sync m16n8k32 s8 -> s32 (exact), 128 x
 //              256 blocks of 8 warps with 64 x 64 tiles, one block an SM, 128
-//              K bytes a slab. A's slab rows are already k-contiguous, the
-//              layout of mma.sync's A fragment: ldmatrix reads them as they
-//              are, 16-byte chunks XOR-swizzled by the row's low 3 bits. D's
-//              slab holds (k, n) bytes, so each warp reads its B fragments as
-//              4 (k) x 4 (n) byte blocks and transposes them in registers, as
-//              K2 does (csrc/sym_topk.cu, transpose4x4 in tensor_core.cuh);
-//              fragment columns then stand for permuted columns that the
-//              epilogue maps back.
-//   f32, bf16  tile_simt_kernel: 128 x 128 blocks, 8 x 8 SIMT FMA outputs a
-//              thread, slabs of 32 four-byte K units (32 f32 or 64 bf16 K
-//              rows). The FMA loop wants 8 rows of A at one k, and A's rows
-//              arrive k-contiguous: 4-byte cp.async copies land each unit
-//              transposed, A[u][m] with rows BM + 4 words apart, a warp
-//              copying 8 units of 4 rows (32 bytes of each, 32 banks). D's
-//              slab is already the outer product's layout. Each output is one
-//              in-order fmaf chain over k (no split, no TF32), so the scores
-//              are those of the plain loop; bf16 is widened exactly on the
-//              way out of shared memory.
-// Copies are 16 bytes (4 for A's f32 / bf16 units) when both operands' rows
-// and bases are 16-byte aligned (the main path: u_pad, K and tc are
-// multiples of 128), else 4-byte cp.async when they are 4-byte aligned, else
-// plain element loads and stores (V, a template parameter chosen at launch).
+//              K bytes a slab, 3 slabs. A's slab rows are already
+//              k-contiguous, the layout of mma.sync's A fragment: ldmatrix
+//              reads them as they are, 16-byte chunks XOR-swizzled by the
+//              row's low 3 bits. D's slab holds (k, n) bytes, so each warp
+//              reads its B fragments as 4 (k) x 4 (n) byte blocks and
+//              transposes them in registers, as K2 does (csrc/sym_topk.cu,
+//              transpose4x4 in tensor_core.cuh); fragment columns then stand
+//              for permuted columns that the epilogue maps back.
+//   bf16 and   tile_bf16_kernel: mma.sync m16n8k16 bf16 -> f32, 128 x 128
+//   the split  blocks of 8 warps with 64 x 32 tiles, 64 K rows a slab, 3
+//   modes      slabs (on an H100, 64 rows in 3 slabs timed 7-17% under 32
+//              rows in 4: half the barriers and partial sums;
+//              benchmarks/micro_bf16_products.py). A's slab rows (128
+//              bytes) are k-contiguous: plain ldmatrix reads its fragments,
+//              chunks XOR-swizzled by the row's low 3 bits. D's (k, n) slab
+//              rows are what ldmatrix .trans
+//              reads as B fragments, chunks XOR-swizzled by the row's low 3
+//              bits. The split-bf16x3 modes (precision='high' on f32 data;
+//              pallas_kernels.py::split_bf16x3) take [hi; lo] stacks: A
+//              (M x 2K) with the lo half at column K, D (2K x N) with it at
+//              row K. A slab stage holds the hi and the lo slab of the same K
+//              range, each fragment is read once per k16 step, and the step
+//              runs every phase (SPLIT, a template parameter) into the same
+//              accumulators, reusing the hi fragments from registers: one
+//              pass over the operands where the TPU kernel sweeps K once a
+//              phase. Each slab's sums go to a zeroed partial that is added
+//              to the f32 total once per slab (round to nearest), so the
+//              tensor cores' own rounding inside an mma.sync acts on a
+//              slab's partial only, not on the running total.
+//   f32        tile_simt_kernel: 128 x 128 blocks, 8 x 8 SIMT FMA outputs a
+//              thread, slabs of 32 four-byte K units, 3 slabs. The FMA loop
+//              wants 8 rows of A at one k, and A's rows arrive k-contiguous:
+//              4-byte cp.async copies land each unit transposed, A[u][m] with
+//              rows BM + 4 words apart, a warp copying 8 units of 4 rows (32
+//              bytes of each, 32 banks). D's slab is already the outer
+//              product's layout. Each output is one in-order fmaf chain over
+//              k (no split, no TF32), so the scores are those of the plain
+//              loop. (The kernel is written for 2-byte elements too, which
+//              no launch instantiates since bf16 runs on the tensor cores.)
+// Copies are 16 bytes (4 for A's f32 units) when both operands' rows and
+// bases are 16-byte aligned (the main path: u_pad, K and tc are multiples of
+// 128), else 4-byte cp.async when they are 4-byte aligned, else plain
+// element loads and stores (V, a template parameter chosen at launch). The
+// split modes take 16-byte copies only (the executor's shapes).
 //
 // Top-k: topk_kernel, one block per (row, tile) of the scores. It keeps the
 // scores above the carry's kth, sorts them in shared memory (bitonic, on
@@ -46,9 +68,8 @@
 // (t+1)*N) of a score row `ld` wide; its ids are pvec[10] + t*N + col, and
 // its output is plane t of (tiles, k_pad, M).
 //
-// Given away, for later work: wgmma and TMA, bf16 on the tensor cores, and
-// keeping the scores on chip instead of a round trip through device memory
-// between the two launches.
+// Given away, for later work: wgmma and TMA, and keeping the scores on chip
+// instead of a round trip through device memory between the two launches.
 
 #pragma once
 
@@ -65,6 +86,10 @@ constexpr int STAGES = 3;     // slabs in the shared-memory ring
 constexpr int UNITS = 32;     // f32 / bf16: 4-byte K units per slab
 constexpr int A_LD = BM + 4;  // f32 / bf16: words between A's unit rows
 constexpr int IBK = 128;      // int8: K bytes per slab, four k32 steps
+constexpr int TBK = 64;       // bf16 tensor cores: K rows per slab, four k16 steps
+constexpr int T_STAGES = 3;   // bf16 tensor cores: slabs in the ring
+constexpr int TA_HALF = BM * TBK * 2;  // bytes of one half (hi or lo) of A's slab
+constexpr int TD_HALF = TBK * BN * 2;  // ... and of D's
 constexpr int TOPK_THREADS = 256;
 constexpr int MAX_SMEM = 227 * 1024;
 
@@ -290,6 +315,137 @@ __global__ void __launch_bounds__(THREADS, 2) tile_simt_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// bf16 and the split-bf16x3 modes: mma.sync m16n8k16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+template <int SPLIT>
+constexpr size_t bf16_smem() {
+  return (size_t)T_STAGES * ((split_a_lo<SPLIT>() ? 2 : 1) * TA_HALF +
+                             (split_b_lo<SPLIT>() ? 2 : 1) * TD_HALF);
+}
+
+// Byte offset of 16-byte chunk `ch` (0..7) of row `r` of A's slab (rows of
+// TBK bf16 = 128 bytes): the chunk is XORed with the row's low 3 bits, so
+// the 8 rows of one ldmatrix matrix fall in 8 distinct chunks, 32 banks.
+__device__ __forceinline__ int ak_swz(int r, int ch) {
+  return r * (TBK * 2) + ((ch ^ (r & 7)) << 4);
+}
+
+// One 128 x 128 block: 8 warps of 64 x 32 (4 m16 x 4 n8 tiles), 64 f32
+// accumulators and 64 of the slab's partial sums a thread, one block an SM.
+// `K` is the depth of one half: with a lo half, A's rows are 2K long and
+// D holds 2K rows.
+template <int SPLIT, bool BIAS, int V>
+__global__ void __launch_bounds__(THREADS, 1) tile_bf16_kernel(
+    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ d, int M, int K,
+    int N, TileEpi<float> e) {
+  constexpr bool A_LO = split_a_lo<SPLIT>(), D_LO = split_b_lo<SPLIT>();
+  constexpr int A_BYTES = (A_LO ? 2 : 1) * TA_HALF;     // A's slab (both halves)
+  constexpr int STAGE = A_BYTES + (D_LO ? 2 : 1) * TD_HALF;
+  constexpr int A_ROW = TBK * 2 / V, D_ROW = BN * 2 / V;  // copies per slab row
+  constexpr int A_COPIES = BM * A_ROW / THREADS, D_COPIES = TBK * D_ROW / THREADS;
+  extern __shared__ __align__(16) unsigned char smem[];  // [T_STAGES][A hi, A lo, D hi, D lo]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const size_t lda = A_LO ? 2 * (size_t)K : (size_t)K;  // elements between A's rows
+  const size_t d_lo = (size_t)K * N;                    // D's lo half, in elements
+  const int n_slabs = (K + TBK - 1) / TBK;
+
+  auto fetch = [&](int s) {
+    if (s < n_slabs) {
+      unsigned char* st = smem + (s % T_STAGES) * STAGE;
+#pragma unroll
+      for (int h = 0; h < (A_LO ? 2 : 1); ++h) {
+#pragma unroll
+        for (int i = 0; i < A_COPIES; ++i) {
+          const int c = tid + i * THREADS, row = c / A_ROW, off = (c % A_ROW) * V;
+          const int k = s * TBK + off / 2;
+          const bool full = m0 + row < M && k < K;
+          copy_v<V>(st + h * TA_HALF + ak_swz(row, off >> 4) + (off & 15),
+                    full ? a + (m0 + row) * lda + h * K + k : a, full);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < (D_LO ? 2 : 1); ++h) {
+#pragma unroll
+        for (int i = 0; i < D_COPIES; ++i) {
+          const int c = tid + i * THREADS, row = c / D_ROW, off = (c % D_ROW) * V;
+          const int k = s * TBK + row, col = n0 + off / 2;
+          const bool full = k < K && col < N;
+          copy_v<V>(st + A_BYTES + h * TD_HALF + kn_swz(row, off >> 4) + (off & 15),
+                    full ? d + h * d_lo + (size_t)k * N + col : d, full);
+        }
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < T_STAGES - 1; ++s) fetch(s);
+  for (int s = 0; s < n_slabs; ++s) {
+    cp_async_wait<T_STAGES - 2>();  // slab s is in
+    __syncthreads();                // ... for every thread, and slab s - 1 is done with
+    fetch(s + T_STAGES - 1);        // into slab s - 1's place
+    const unsigned char* sa = smem + (s % T_STAGES) * STAGE;
+    const unsigned char* sd = sa + A_BYTES;
+    float part[4][4][4];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[mi][ni][q] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < TBK; ks += 16) {
+      // A: ldmatrix x4 of m-tile mi, matrices (rows 0-7 | 8-15) x (k ks ..
+      // +7 | ks + 8 .. +15): lane l gives row l & 15, chunk ks / 8 + l / 16
+      uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        const int off = ak_swz(wm + 16 * mi + (lane & 15), ks / 8 + (lane >> 4));
+        ldmatrix_x4(ah[mi], sa + off);
+        if constexpr (A_LO) ldmatrix_x4(al[mi], sa + TA_HALF + off);
+      }
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {
+        ldsm_b_pair(bh[2 * nj], bh[2 * nj + 1], sd, ks, wn + 16 * nj, lane);
+        if constexpr (D_LO) ldsm_b_pair(bl[2 * nj], bl[2 * nj + 1], sd + TD_HALF, ks, wn + 16 * nj, lane);
+      }
+      mma_split<SPLIT>(part, ah, al, bh, bl);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mi][ni][q] += part[mi][ni][q];
+  }
+  cp_async_wait<0>();
+
+  // C row g + 8 hh of m-tile mi is row wm + 16 mi + 8 hh + g; C column
+  // 2 tig + jj of n-tile ni is column wn + 8 ni + 2 tig + jj
+  int rows[8], cols[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) rows[i] = m0 + wm + 16 * (i >> 1) + 8 * (i & 1) + g;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) cols[j] = n0 + wn + 8 * (j >> 1) + 2 * tig + (j & 1);
+  tile_epilogue<MODE_BF16, BIAS>(e, M, N, rows, cols, [&](int i, int j) {
+    return acc[i >> 1][j >> 1][2 * (i & 1) + (j & 1)];
+  });
+}
+
+// ---------------------------------------------------------------------------
 // int8: mma.sync m16n8k32 on the tensor cores
 // ---------------------------------------------------------------------------
 
@@ -440,17 +596,33 @@ void* kernel_for(size_t* smem) {
   if constexpr (MODE == MODE_INT8) {
     *smem = S8_SMEM;
     return reinterpret_cast<void*>(tile_s8_kernel<BIAS, V>);
+  } else if constexpr (MODE == MODE_F32) {
+    *smem = simt_smem<float>();
+    return reinterpret_cast<void*>(tile_simt_kernel<MODE_F32, BIAS, V>);
   } else {
-    *smem = simt_smem<typename Operand<MODE>::elem>();
-    return reinterpret_cast<void*>(tile_simt_kernel<MODE, BIAS, V>);
+    constexpr int SPLIT = MODE == MODE_SPLIT_BOTH  ? SPLIT_BOTH
+                          : MODE == MODE_SPLIT_RHS ? SPLIT_RHS
+                          : MODE == MODE_SPLIT_LHS ? SPLIT_LHS
+                                                   : SPLIT_NONE;
+    *smem = bf16_smem<SPLIT>();
+    return reinterpret_cast<void*>(tile_bf16_kernel<SPLIT, BIAS, V>);
   }
 }
 
-// The product kernel for a runtime mode (0 = f32, 1 = bf16, 2 = int8) and
-// copy width, with its dynamic shared memory; null for a pair that no
-// launch takes.
+// The product kernel for a runtime mode (0 = f32, 1 = bf16, 2 = int8, 3 / 4
+// / 5 = split 'both' / 'rhs' / 'lhs') and copy width, with its dynamic
+// shared memory; null for a pair that no launch takes. The split modes
+// take 16-byte copies and no bias (K3 runs no split mode).
 template <bool BIAS>
 void* select_product(int mode, int v, size_t* smem) {
+  if constexpr (!BIAS) {
+    switch (mode * 32 + v) {
+      case MODE_SPLIT_BOTH * 32 + 16: return kernel_for<MODE_SPLIT_BOTH, false, 16>(smem);
+      case MODE_SPLIT_RHS * 32 + 16: return kernel_for<MODE_SPLIT_RHS, false, 16>(smem);
+      case MODE_SPLIT_LHS * 32 + 16: return kernel_for<MODE_SPLIT_LHS, false, 16>(smem);
+      default: break;
+    }
+  }
   switch (mode * 32 + v) {
     case MODE_F32 * 32 + 16: return kernel_for<MODE_F32, BIAS, 16>(smem);
     case MODE_F32 * 32 + 4: return kernel_for<MODE_F32, BIAS, 4>(smem);
@@ -473,7 +645,7 @@ cudaError_t product_any(int mode, const void* a, const void* d, const void* bias
                         const void* allowed, const void* fmask, const void* tmask, int flags,
                         void* scores, cudaStream_t s) {
   if (M <= 0 || N <= 0 || K < 0 || (bias != nullptr) != BIAS) return cudaErrorInvalidValue;
-  const int esz = mode == MODE_F32 ? 4 : mode == MODE_BF16 ? 2 : 1;
+  const int esz = mode == MODE_F32 ? 4 : mode == MODE_INT8 ? 1 : 2;
   size_t smem = 0;
   void* kern = select_product<BIAS>(mode, copy_width(a, d, K, N, esz), &smem);
   if (!kern) return cudaErrorInvalidValue;

@@ -2,10 +2,13 @@
 // for NVIDIA Hopper (sm_90a), hand-written CUDA C++.
 //
 // Replaces similaripy_tpu/engine/pallas_kernels.py::fused_tile_topk (kernel
-// body _kernel, shared epilogue _epilogue_val), for split_f32=False. For one
+// body _kernel, shared epilogue _epilogue_val), split_f32 included. For one
 // row panel A (trp x K) against one column tile D (K x tc) it computes
 //     xy  = A . D             f32: true f32 FMA (no TF32 anywhere)
 //                             bf16: bf16 operands, f32 accumulation
+//                             split 'both' / 'rhs' / 'lhs': bf16 [hi; lo]
+//                               stacks of f32 data (split_bf16x3), summed
+//                               over 3 or 2 bf16 phases in f32 (XLA HIGH)
 //                             int8: exact int32 accumulation, then * inv_scale
 //     val = S-Plus epilogue(xy) with the allowed / filter / target masks,
 //           -inf where a cell is no candidate or falls below the threshold
@@ -18,14 +21,17 @@
 // What bounds it on an H100 SXM: the product. At the main path's shapes
 // (trp = 1,024, K ~ 200,960) it does ~400 operations per byte of A and D,
 // so it is bound by operations: 67 TFLOP/s of f32 FMA outside the tensor
-// cores for f32 and bf16 (bf16 operands, f32 products), 1,979 TOP/s of int8
+// cores for f32, 989 TFLOP/s of bf16 on the tensor cores for bf16 (a third
+// or half of that for the 3- or 2-phase split modes), 1,979 TOP/s of int8
 // on the tensor cores. The D tile streams from device memory at 3.35 TB/s.
 //
 // Two launches, both in tile_kernels.cuh, shared with K3 (panel_topk.cu):
 //   1. the product with the epilogue and masks fused, its operands fed by a
-//      3-slab cp.async ring: int8 on the tensor cores (mma.sync m16n8k32
-//      s8, 128 x 256 blocks), f32 and bf16 on SIMT FMA (128 x 128 blocks,
-//      one in-order fmaf chain per output); the score (or -inf) goes to a
+//      cp.async ring: int8 on the tensor cores (mma.sync m16n8k32 s8, 128 x
+//      256 blocks), bf16 and the split modes on the tensor cores (mma.sync
+//      m16n8k16 bf16, 128 x 128 blocks, every phase of a split mode from one
+//      read of its operands), f32 on SIMT FMA (128 x 128 blocks, one
+//      in-order fmaf chain per output); the score (or -inf) goes to a
 //      (trp x tc) f32 scratch that the wrapper allocates.
 //   2. topk_kernel: one block per row. It keeps the scores above the carry's
 //      kth, sorts them in shared memory and merges them with the carry.
@@ -37,7 +43,9 @@
 extern "C" {
 
 // Launch 1: scores (M x N f32) = masked S-Plus epilogue of a (M x K) . d (K x N).
-// mode 0 = f32, 1 = bf16, 2 = int8; the mask pointers may be null.
+// mode 0 = f32, 1 = bf16, 2 = int8; 3 / 4 / 5 = split 'both' / 'rhs' / 'lhs'
+// (bf16 stacks: a (M x 2K) for 'both' and 'lhs', d (2K x N) for 'both' and
+// 'rhs'; K is one half's depth); the mask pointers may be null.
 int tile_product(int mode, const void* a, const void* d, int M, int K, int N,
                  const void* xt, const void* xc, const void* xd, const void* yt,
                  const void* yc, const void* yd, const void* pvec,

@@ -22,10 +22,13 @@ this branch, unless it goes to the symmetric executor (``symmetric.py``) or
 to the union-compaction executor (``compact.py``), as in the JAX package.
 The recommend idiom ``dot_product(urm, W.T, filter_cols=urm)`` drops its
 per-row filter masks through the exclude-seen fold (``_exclude_seen_fold``:
-m2 - M*I, exact under its gate; ``FOLD_FILTER = False`` opts out). The JAX
-package's split-bf16x3 sweep is not ported; it changes speed only, never a
-result. Device uploads of all three executors live in the content-keyed
-cache at the end of this module (``cache_info``, ``clear_caches``).
+m2 - M*I, exact under its gate; ``FOLD_FILTER = False`` opts out). f32
+calls with ``precision='high'`` run K1 in a split-bf16x3 mode
+(``_select_f32x3_mode``): the f32 side(s) go to K5 as the COO of their
+[hi; lo] bf16 stacks (``split_coo``), a side that bf16 holds exactly as a
+plain bf16 tile. Device uploads of all three executors live in the
+content-keyed cache at the end of this module (``cache_info``,
+``clear_caches``).
 
 Candidate semantics: an output cell is a candidate iff its product xy != 0
 (the dense-tile proxy for the reference's structural non-zeros,
@@ -52,6 +55,7 @@ from .params import PVEC_LEN, SPlusParams, build_pvec
 from .preprocess import (
     Preprocessed, _fingerprint, clear_prep_cache, int8_values, prep_cache_len,
 )
+from .tile_topk import split_bf16x3_parts
 from .scatter import densify
 
 NEG_INF = float("-inf")
@@ -61,9 +65,11 @@ NEG_INF = float("-inf")
 KERNEL_MAX_TC = 8192
 
 # tile-width search model of an H100 SXM (relative costs only): the
-# published f32 FMA peak (the SIMT kernel runs bf16 at that rate too), an
-# assumed per-tile launch cost and an assumed device scatter rate
+# published f32 FMA peak (K1's f32 SIMT kernel), the published dense bf16
+# tensor-core peak (bf16 and each phase of a split mode), an assumed
+# per-tile launch cost and an assumed device scatter rate
 _SEARCH_RATE = 67e12
+_SEARCH_RATE_BF16 = 989e12
 _SEARCH_TILE_OVERHEAD_S = 20e-6
 _SEARCH_SCATTER_NNZ_PER_S = 1e9
 
@@ -157,15 +163,19 @@ def plan_fused_groups(
     search: bool,
     max_tc: int,
     col_shards: int = 1,
+    phases: int = 1,
+    rate: float = _SEARCH_RATE,
 ) -> tuple[int, int, int, int]:
     """Choose (tc, n_tiles_padded, g_tiles, n_groups) for the grouped sweep
     (executor.py:175); on a mesh every one of the `col_shards` column
     shards holds n_groups groups of g_tiles tiles.
 
     With `search`, the column-tile width minimizes a modeled sweep cost over
-    candidate widths: empty padded tiles cost full products and every extra
-    group re-scatters the whole matrix1 panel set, so how C divides into
-    tiles matters more than the width itself. Deterministic host logic."""
+    candidate widths: empty padded tiles cost full products (`phases`
+    products of a split mode at `rate` each, executor.py:239-240) and every
+    extra group re-scatters the whole matrix1 panel set, so how C divides
+    into tiles matters more than the width itself. Deterministic host
+    logic."""
 
     def group_plan(tc_cand: int):
         n_t = math.ceil(math.ceil(C / tc_cand) / col_shards)  # one shard's tiles
@@ -193,7 +203,7 @@ def plan_fused_groups(
     if search:
         def cost(tc_cand: int):
             _n_tp, g, ng = group_plan(tc_cand)
-            prod = n_panels * ng * g * (2.0 * trp * u_pad * tc_cand / _SEARCH_RATE)
+            prod = n_panels * ng * g * (2.0 * trp * u_pad * tc_cand * phases / rate)
             ovh = n_panels * ng * g * _SEARCH_TILE_OVERHEAD_S
             scat = ng * (m1_nnz + m2_nnz) / _SEARCH_SCATTER_NNZ_PER_S
             return prod + ovh + scat
@@ -390,6 +400,95 @@ def resolve_compute_dtype(requested: str, pre: Preprocessed) -> tuple[str, float
 
 
 # ---------------------------------------------------------------------------
+# precision='high': the split-bf16x3 modes (executor.py:330-395)
+# ---------------------------------------------------------------------------
+
+_BF16_EXACT_CACHE: dict = {}
+
+# the products of each mode, for the planner (executor.py:239)
+SPLIT_PHASES = {None: 1, "rhs": 2, "lhs": 2, "both": 3}
+
+
+def _bf16_exact(fp, m) -> bool:
+    """True when every value a densify of `m` holds is exactly
+    bf16-representable: its entries and the sums of its repeated entries
+    (preprocess.int8_values), judged on their f32 values in PyTorch.
+    Integer ratings, binary interactions and counts up to 256 qualify.
+    Memoised by the content fingerprint `fp`."""
+    hit = _BF16_EXACT_CACHE.get(fp)
+    if hit is None:
+        v = torch.from_numpy(np.ascontiguousarray(int8_values(m), dtype=np.float32))
+        hit = bool(torch.equal(v.to(torch.bfloat16).to(torch.float32), v))
+        if len(_BF16_EXACT_CACHE) > 64:
+            _BF16_EXACT_CACHE.pop(next(iter(_BF16_EXACT_CACHE)))
+        _BF16_EXACT_CACHE[fp] = hit
+    return hit
+
+
+def _select_f32x3_mode(pre, m1, m2, compute_dtype: str, precision: str):
+    """(compute_dtype, f32x3) of a grouped call (executor.py:355).
+
+    An f32 call with precision='high' runs K1 in a split-bf16x3 mode, the
+    product XLA's HIGH computes: 'both' (3 phases, hi.hi + lo.hi + hi.lo)
+    when both matrices are float; 'rhs' (2 phases) when matrix1 is exact
+    in bf16, so its lo half is zero (a scoring call on integer ratings);
+    'lhs' when matrix2 is. When both are exact, one plain bf16 phase is
+    already exact in f32: the call rides compute_dtype='bfloat16'. Every
+    other call keeps its compute type and f32x3 None. 'default' stays true
+    f32 (a minimum, as the JAX package on a CPU gives it). The choice
+    reads the whole of both matrices, which every rank of a mesh holds, so
+    all ranks agree."""
+    if not (compute_dtype == "float32" and precision == "high"):
+        return compute_dtype, None
+    m1_exact = _bf16_exact(pre.fp1, m1)
+    m2_exact = _bf16_exact(pre.fp2, m2)
+    if m1_exact and m2_exact:
+        return "bfloat16", None
+    return compute_dtype, "rhs" if m1_exact else ("lhs" if m2_exact else "both")
+
+
+def _d_split(f32x3):
+    """The tile side (matrix2) of a split mode (executor.py:385): its
+    [hi; lo] stack for 'both'/'rhs', a plain bf16 tile for 'lhs' (exact in
+    bf16), None otherwise."""
+    return "split" if f32x3 in ("both", "rhs") else "cast" if f32x3 == "lhs" else None
+
+
+def canonical(m):
+    """`m` with its repeated entries summed (a copy), or `m` itself when it
+    has none: a split densify adds the hi and lo halves of each entry, and
+    the split of a sum is not the sum of the splits."""
+    if m.has_canonical_format:
+        return m
+    m = m.copy()
+    m.sum_duplicates()
+    return m
+
+
+def split_coo(rows, cols, vals, n: int, axis: int):
+    """The COO of the split_bf16x3 stack of a (.., n)-deep f32 COO along
+    `axis` (0: rows, 1: columns), without its dense f32 form: each value's
+    hi half stays at its place, its lo half moves n further along `axis`,
+    both as f32 values that bf16 holds exactly, so a bf16 densify of the
+    result over 2n equals split_bf16x3 of the f32 densify, bit for bit,
+    when no place repeats. Entries already out of range along `axis` (>= n:
+    the tile stacks' padding sentinels) move to 2n, still out of range.
+    NumPy arrays of any leading shape; the halves are concatenated along
+    the last axis."""
+    hi, lo = split_bf16x3_parts(torch.from_numpy(np.ascontiguousarray(vals, dtype=np.float32)))
+    hi, lo = hi.to(torch.float32).numpy(), lo.to(torch.float32).numpy()
+    if axis == 0:
+        real = rows < n
+        rows = np.concatenate([np.where(real, rows, 2 * n), np.where(real, rows + n, 2 * n)], -1)
+        cols = np.concatenate([cols, cols], -1)
+    else:
+        real = cols < n
+        rows = np.concatenate([rows, rows], -1)
+        cols = np.concatenate([np.where(real, cols, 2 * n), np.where(real, cols + n, 2 * n)], -1)
+    return rows.astype(np.int32), cols.astype(np.int32), np.concatenate([hi, lo], -1)
+
+
+# ---------------------------------------------------------------------------
 # Exclude-seen fold (executor.py:379-483)
 # ---------------------------------------------------------------------------
 
@@ -486,13 +585,14 @@ def _wide_k_tile(*args, **kwargs):
 
 
 def _run_group_panels(panels, d_stack, group, pvec, carries, *, flags, k_pad,
-                      trp, u_pad, cdt, int8_mode, tile_fn):
+                      trp, panel_k, cdt, int8_mode, tile_fn, f32x3=None):
     """All panels x the group's resident tiles (executor.py:622): densify
-    each panel, then feed every tile through `tile_fn` with the panel's
-    carried top-k_pad, which the call returns merged."""
+    each panel (`panel_k` wide: 2 u_pad for a split stack), then feed every
+    tile through `tile_fn` with the panel's carried top-k_pad, which the
+    call returns merged."""
     tc = d_stack.shape[2]
     for p, (pr, pc, pv, x_t, x_c, x_d) in enumerate(panels):
-        m1_dense = densify((trp, u_pad), pr, pc, pv, cdt)
+        m1_dense = densify((trp, panel_k), pr, pc, pv, cdt)
         for j in range(d_stack.shape[0]):
             fmask = tmask = None
             if "fil_rows" in group:
@@ -505,7 +605,7 @@ def _run_group_panels(panels, d_stack, group, pvec, carries, *, flags, k_pad,
                 group["y_t"][j], group["y_c"][j], group["y_d"][j], pvec_ext,
                 allowed=group["allowed"][j] if "allowed" in group else None,
                 fmask=fmask, tmask=tmask, carry=carries[p],
-                flags=flags, k_pad=k_pad, int8_mode=int8_mode,
+                flags=flags, k_pad=k_pad, int8_mode=int8_mode, split_f32=f32x3 or False,
             )
 
 
@@ -579,7 +679,10 @@ def _execute_impl(
     tile_fn: str,
 ):
     """Plan and run one attempt (see execute). `precision` is a minimum
-    guarantee; every float mode here runs true f32 or bf16 products."""
+    guarantee: 'high' on f32 runs the split-bf16x3 modes on the grouped and
+    the symmetric routes (_select_f32x3_mode), true f32 on the compaction
+    route (as compact.py runs HIGH as HIGHEST); 'highest' and 'default'
+    run true f32."""
     global last_route
     if precision not in ("highest", "high", "default"):
         raise ValueError(f"precision must be 'highest', 'high' or 'default', got {precision!r}")
@@ -604,8 +707,8 @@ def _execute_impl(
         # the products and no separate matrix1 staging (symmetric.py)
         last_route = "symmetric"
         return execute_symmetric(
-            pre, params, compute_dtype=compute_dtype, budget_bytes=budget_bytes,
-            progress=progress, device=device, tile_fn=tile_fn,
+            pre, params, compute_dtype=compute_dtype, precision=precision,
+            budget_bytes=budget_bytes, progress=progress, device=device, tile_fn=tile_fn,
         )
     from .compact import compact_eligible, execute_compact
 
@@ -620,7 +723,8 @@ def _execute_impl(
     last_route = "general"
     return execute_grouped(
         pre, params, block_size_hint=block_size_hint, compute_dtype=compute_dtype,
-        budget_bytes=budget_bytes, progress=progress, device=device, tile_fn=tile_fn,
+        precision=precision, budget_bytes=budget_bytes, progress=progress, device=device,
+        tile_fn=tile_fn,
     )
 
 
@@ -633,10 +737,14 @@ def execute_grouped(
     budget_bytes: int,
     progress,
     device: torch.device,
+    precision: str = "highest",
     tile_fn: str = "kernel",
     mesh=None,
 ):
     """The grouped sweep; returns host (T, k) vals f32 and idx int32.
+
+    An f32 call with precision='high' runs K1 in the split-bf16x3 mode that
+    `_select_f32x3_mode` picks (its name in last_plan["f32x3"]).
 
     With `mesh` (``parallel.make_mesh``; sharded.py:434 of the JAX package)
     target-row panels are dealt over the 'rows' dimension and matrix2's
@@ -654,6 +762,9 @@ def execute_grouped(
     T_sh = math.ceil(T / R_sh)  # one row shard's target rows
 
     compute_dtype, inv_scale = resolve_compute_dtype(compute_dtype, pre)
+    # the first plan sizes the f32 call, as the reference's (executor.py:1358)
+    plan_item = torch.empty(0, dtype=compute_cast(compute_dtype)).element_size()
+    compute_dtype, f32x3 = _select_f32x3_mode(pre, m1, m2, compute_dtype, precision)
     cdt = compute_cast(compute_dtype)
     # exclude-seen fold: the recommend idiom's per-row filter becomes
     # matmul algebra (m2 - M*I): no selector tiles and no filter masks
@@ -663,8 +774,7 @@ def execute_grouped(
     budget, neg_foreign = pmesh.agree_min(
         (budget_bytes, -foreign_cache_bytes((pre.fp1, pre.fp2))), mesh
     )
-    dense_item = torch.empty(0, dtype=cdt).element_size()
-    plan = plan_tiles(T_sh, U, C, k, dense_item, block_size_hint, budget)
+    plan = plan_tiles(T_sh, U, C, k, plan_item, block_size_hint, budget)
     trp, tc, u_pad = plan.panel_rows, plan.tile_cols, plan.u_pad
 
     # carry planes accumulate across ALL tiles, so their depth is k
@@ -672,6 +782,7 @@ def execute_grouped(
     k_pad = _round_up(min(k, C), 8)
     wide = k_pad > tile_topk.MAX_KERNEL_K_PAD
     if wide:
+        f32x3 = None  # the plain branch multiplies in true f32 (executor.py:1423)
         k_pad = k
         step = _wide_k_tile
     elif tile_fn == "plain":
@@ -686,7 +797,13 @@ def execute_grouped(
     trp = min(trp, 2048)
     tc = _round_up(min(tc, KERNEL_MAX_TC, _round_up(C, 128)), 128)
 
-    m1_bytes = trp * u_pad * dense_item
+    # bytes an element of a panel and of a tile (executor.py:1431-1438): a
+    # split stack is two bf16 halves, the exact side of 'rhs' / 'lhs' one
+    dense_item = torch.empty(0, dtype=cdt).element_size()
+    panel_item = 2 if f32x3 == "rhs" else dense_item
+    tile_item = 2 if f32x3 == "lhs" else dense_item
+    split_cdt = torch.bfloat16 if f32x3 else cdt  # what K5 and the panel densify store
+    m1_bytes = trp * u_pad * panel_item
     # the filter's nnz stays in the reserve when the fold drops its masks,
     # so a folded call plans the masked call's geometry
     sel_nnz = (
@@ -697,10 +814,11 @@ def execute_grouped(
     tc, n_tiles, g_tiles, n_groups = plan_fused_groups(
         C=C, tc=tc, u_pad=u_pad, trp=trp, k_pad=k_pad,
         m1_nnz=m1.nnz, m2_nnz=m2.nnz, sel_nnz=sel_nnz,
-        m1_bytes=m1_bytes, tile_item=dense_item, budget=budget,
+        m1_bytes=m1_bytes, tile_item=tile_item, budget=budget,
         foreign=-neg_foreign, n_panels=n_panels,
         search=compute_dtype in ("bfloat16", "float32") and block_size_hint == 0,
-        max_tc=KERNEL_MAX_TC, col_shards=C_sh,
+        max_tc=KERNEL_MAX_TC, col_shards=C_sh, phases=SPLIT_PHASES[f32x3],
+        rate=_SEARCH_RATE if compute_dtype == "float32" and not f32x3 else _SEARCH_RATE_BF16,
     )
     n_own = n_groups * g_tiles
     base = c_me * n_own  # this column shard's tiles: [base, base + n_own)
@@ -709,7 +827,7 @@ def execute_grouped(
     last_plan.update(
         compute_dtype=compute_dtype, trp=trp, tc=tc, u_pad=u_pad, k_pad=k_pad,
         n_panels=n_panels, n_tiles=n_tiles, g_tiles=g_tiles, n_groups=n_groups,
-        fold=fold_M, mesh=(R_sh, C_sh), coordinate=(r_me, c_me), budget=budget,
+        fold=fold_M, f32x3=f32x3, mesh=(R_sh, C_sh), coordinate=(r_me, c_me), budget=budget,
         # this rank's launches: K1 once per (panel, own tile), K5 per group
         k1_launches=n_panels * n_own, k5_launches=n_groups,
     )
@@ -719,9 +837,10 @@ def execute_grouped(
 
     # ---- matrix2 tiles: balanced round-robin column layout, cached ----
     int8_mode = compute_dtype in ("int8", "int4")
+    d_split = _d_split(f32x3)
     m2_key = (
         "m2", pre.fp2, _fingerprint(pre.Yt, pre.Yc, pre.Yd, pre.col_allowed),
-        compute_dtype, tc, n_tiles, u_pad, fold_M, base, n_own, str(device),
+        compute_dtype, d_split, tc, n_tiles, u_pad, fold_M, base, n_own, str(device),
     )
     cached = _cache_get(m2_key)
     if cached is None:
@@ -729,11 +848,14 @@ def execute_grouped(
         m2_csc = csc_quantized(m2, pre.qscale2 if int8_mode else None)
         if fold_M is not None:
             m2_csc = _apply_fold(m2_csc, fold_M, C)
+        if f32x3:
+            m2_csc = canonical(m2_csc)
         tile_lists, col_map = balance_columns(np.diff(m2_csc.indptr), n_tiles, tc)
         own_lists = tile_lists[base:base + n_own]
-        m2_coo = tuple(
-            dev(a) for a in _stack_m2_tiles_balanced(m2_csc, own_lists, tc, u_pad)
-        )
+        coo = _stack_m2_tiles_balanced(m2_csc, own_lists, tc, u_pad)
+        if d_split == "split":  # the [hi; lo] stacks, 2 u_pad deep
+            coo = split_coo(*coo, u_pad, axis=0)
+        m2_coo = tuple(dev(a) for a in coo)
 
         def own_tiles(v):
             return dev(v.reshape(n_tiles, -1)[base:base + n_own])
@@ -755,9 +877,11 @@ def execute_grouped(
 
     # ---- matrix1 panels: target rows dealt round-robin by nnz rank over
     # (panel, row shard) slots; this rank stages its row shard's panels ----
+    a_split = f32x3 in ("both", "lhs")  # the panel side is a [hi; lo] stack
     m1_key = (
         "m1", pre.fp1, _fingerprint(targets, pre.Xt, pre.Xc, pre.Xd),
-        compute_dtype, trp, n_panels, R_sh, r_me, str(device),
+        compute_dtype, f32x3, u_pad if a_split else None, trp, n_panels, R_sh, r_me,
+        str(device),
     )
     cached = _cache_get(m1_key)
     if cached is None:
@@ -765,6 +889,8 @@ def execute_grouped(
         m1_t = m1[targets]
         if int8_mode:
             m1_t.data = np.rint(m1_t.data * pre.qscale1).astype(np.float32)
+        if f32x3:
+            m1_t = canonical(m1_t)
         n_slots = n_panels * R_sh
         order = np.argsort(-np.diff(m1_t.indptr), kind="stable")
         slot_sel = [order[s::n_slots] for s in range(n_slots)]
@@ -774,13 +900,14 @@ def execute_grouped(
             panel = m1_t[sel]
             tgt = targets[sel]
             pr = np.repeat(np.arange(sel.shape[0], dtype=np.int32), np.diff(panel.indptr))
+            coo = (pr, panel.indices.astype(np.int32), panel.data)
+            if a_split:  # the [hi; lo] stack, 2 u_pad wide
+                coo = split_coo(*coo, u_pad, axis=1)
             vecs = [
                 _pad_vec(v[tgt] if v is not None else None, trp)
                 for v in (pre.Xt, pre.Xc, pre.Xd)
             ]
-            panels.append(
-                (dev(pr), dev(panel.indices.astype(np.int32)), dev(panel.data), *map(dev, vecs))
-            )
+            panels.append((*map(dev, coo), *map(dev, vecs)))
         _cache_put(m1_key, (panels, slot_sel))
     else:
         panels, slot_sel = cached
@@ -829,15 +956,17 @@ def execute_grouped(
         t0, t1 = g * g_tiles, (g + 1) * g_tiles
         d_stack = None  # release the previous group before the next lands
         d_stack = densify_group(
-            t_rows[t0:t1], t_cols[t0:t1], t_vals[t0:t1], u_pad=u_pad, tc=tc, cdt=cdt
+            t_rows[t0:t1], t_cols[t0:t1], t_vals[t0:t1],
+            u_pad=2 * u_pad if d_split == "split" else u_pad, tc=tc, cdt=split_cdt,
         )
         group = {name: arr[t0:t1] for name, arr in tiles_common.items()}
         for name, arr in sel_stacked.items():
             group[name] = dev(arr[:, t0:t1])
         _run_group_panels(
             panels, d_stack, group, pvec, carries,
-            flags=params.static_flags(), k_pad=k_pad, trp=trp, u_pad=u_pad,
-            cdt=cdt, int8_mode=int8_mode, tile_fn=step,
+            flags=params.static_flags(), k_pad=k_pad, trp=trp,
+            panel_k=2 * u_pad if a_split else u_pad, cdt=split_cdt, int8_mode=int8_mode,
+            tile_fn=step, f32x3=f32x3,
         )
         if progress is not None:
             done = T if g == n_groups - 1 else (T * (g + 1)) // n_groups
@@ -981,6 +1110,7 @@ def clear_caches():
     for correctness, only to release memory."""
     _DEVICE_CACHE.clear()
     _FOLD_STAT_CACHE.clear()
+    _BF16_EXACT_CACHE.clear()
     clear_prep_cache()
 
 

@@ -89,11 +89,12 @@ def execute_sharded(
     if symmetric_eligible(pre, params, block_size_hint) and pre.n_output_cols > 0:
         ex.last_route = "sym_sharded"
         return execute_symmetric(
-            pre, params, compute_dtype=compute_dtype, budget_bytes=budget_bytes,
-            progress=progress, device=device, mesh=mesh,
+            pre, params, compute_dtype=compute_dtype, precision=precision,
+            budget_bytes=budget_bytes, progress=progress, device=device, mesh=mesh,
         )
     ex.last_route = "sharded"
     return ex.execute_grouped(
         pre, params, block_size_hint=block_size_hint, compute_dtype=compute_dtype,
-        budget_bytes=budget_bytes, progress=progress, device=device, mesh=mesh,
+        precision=precision, budget_bytes=budget_bytes, progress=progress, device=device,
+        mesh=mesh,
     )

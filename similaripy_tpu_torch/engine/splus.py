@@ -10,7 +10,11 @@ Extensions (keyword-only, defaulted so reference call sites work unchanged):
   compute_dtype : 'auto' (default; picks the exact int8 path for integral
                   data, else float32) | 'float32' | 'bfloat16' | 'int8'
   precision     : 'highest' (default) | 'high' | 'default' — a minimum
-                  guarantee; this port runs every float32 product in true f32
+                  guarantee. 'highest' and 'default' run float32 products in
+                  true f32; 'high' runs them as XLA's HIGH does, split-bf16x3
+                  products on the tensor cores (engine/executor.py:
+                  _select_f32x3_mode), except on the compaction route, which
+                  runs true f32 as the JAX package's does
   device        : 'cuda' (default) or 'cpu'; 'cuda' without a card raises.
                   On a mesh it is this rank's compute device
   mesh          : a ('rows', 'cols') DeviceMesh from

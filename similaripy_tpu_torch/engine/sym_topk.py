@@ -18,12 +18,18 @@ sw = gt * tc item rows, starting at tile a0, meets inner tile t:
 ``(sw, u_pad)`` or ``(gt, u_pad, tc)``, returns ``rvals, ridx (k_pad_r,
 sw)`` and ``cvals, cidx (k_pad_c, tc)``; ``pvec_ext`` holds [10] col_base,
 [11] row_base, [12] t, [13] a0. On CUDA tensors it launches the kernels of
-``csrc/sym_topk.cu`` (the product with the fused epilogue: int8 by
-``mma.sync`` on the tensor cores, f32 and bf16 by SIMT FMA, both fed by a
-ring of ``cp.async`` copies; then the row-side and the col-side merge) or
-raises; on CPU tensors it runs ``fused_sym_topk_plain``, the same function
-in plain PyTorch. The kernels take tc a multiple of 128 (the executor's
-tiles) and 16-byte aligned operands, and raise on anything else.
+``csrc/sym_topk.cu`` (the product with the fused epilogue: int8 and bf16
+by ``mma.sync`` on the tensor cores, f32 by SIMT FMA, all fed by a ring of
+``cp.async`` copies; then the row-side and the col-side merge) or raises;
+on CPU tensors it runs ``fused_sym_topk_plain``, the same function in plain
+PyTorch. The kernels take tc a multiple of 128 (the executor's tiles) and
+16-byte aligned operands, and raise on anything else.
+
+``precision='high'`` on f32 data runs the split-bf16x3 mode (``split_f32``,
+pallas_kernels.py:1067-1094): both operands are bf16 [hi; lo] stacks along
+the user axis (``tile_topk.split_bf16x3``), and the product sums hi.hi +
+lo.hi + hi.lo in f32 (a self-similarity's two sides are the same float
+matrix, so the one-sided modes never apply).
 
 ``kernel_launches`` and ``plain_calls`` count the two routes (one per call).
 """
@@ -35,7 +41,8 @@ import ctypes
 import torch
 
 from .params import PVEC_LEN
-from .tile_topk import _MODES, _FLAG_BITS, _check, splus_epilogue
+from .tile_topk import _FLAG_BITS, _MODES, SPLIT_MODES, _check, _split_product_plain
+from .tile_topk import full_f32_matmul, splus_epilogue
 
 NEG_INF = float("-inf")
 
@@ -86,26 +93,26 @@ def _anchor_tiles(a, tc: int):
     return a.view(sw // tc, tc, u_pad).transpose(1, 2)
 
 
-def _product_plain(a, d, n_rows: int, tc: int, int8_mode: bool):
+def _product_plain(a, d, n_rows: int, tc: int, int8_mode: bool, split: bool = False):
     """(n_rows, tc) xy of the first n_rows anchor rows: float64 for int8
-    (exact), true f32 otherwise (TF32 kept off on the card)."""
+    (exact), the three phases hi.hi + lo.hi + hi.lo of the split stacks in
+    the JAX kernel's order (each an f32 product of bf16-valued operands,
+    exact products), true f32 otherwise (TF32 kept off on the card)."""
     tiles = _anchor_tiles(a, tc)
     blocks = []
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with full_f32_matmul():
         for g in range(-(-n_rows // tc)):
-            lhs = tiles[g].transpose(0, 1)  # (tc, u_pad)
+            lhs = tiles[g].transpose(0, 1)  # (tc, u_pad), or (tc, 2 u_pad) split
             if int8_mode:
                 acc = torch.zeros((tc, d.shape[1]), dtype=torch.float64, device=d.device)
                 for u0 in range(0, d.shape[0], _PLAIN_INT8_USERS):
                     u1 = u0 + _PLAIN_INT8_USERS
                     acc += lhs[:, u0:u1].to(torch.float64) @ d[u0:u1].to(torch.float64)
                 blocks.append(acc.to(torch.float32))
+            elif split:
+                blocks.append(_split_product_plain(lhs, d, "both"))
             else:
                 blocks.append(lhs.to(torch.float32) @ d.to(torch.float32))
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
     return torch.cat(blocks)[:n_rows]
 
 
@@ -129,7 +136,7 @@ def merge_plain(val, cv, ci, kth, k_pad: int, id_base: int, new_first: bool):
 
 
 def _plain(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
-           pvec_ext, *, flags, k, tc, int8_mode, x2=None, y2=None):
+           pvec_ext, *, flags, k, tc, int8_mode, x2=None, y2=None, split_f32=False):
     pv = pvec_ext.tolist()
     sw = crv.shape[1]
     k_pad_r, k_pad_c = sym_k_pads(k, tc, sw)
@@ -138,7 +145,7 @@ def _plain(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
     cvals, cidx = ccv.clone(), cci.clone()
     if n_live == 0:
         return rvals, ridx, cvals, cidx
-    xy = _product_plain(a, d, n_live, tc, int8_mode)
+    xy = _product_plain(a, d, n_live, tc, int8_mode, bool(split_f32))
     if int8_mode:
         xy = xy * pv[9]  # inv_scale
     cand = xy != 0.0
@@ -162,16 +169,18 @@ def _plain(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
 
 def fused_sym_topk_plain(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth,
                          ccv, cci, pvec_ext, *, flags: tuple, k: int, tc: int,
-                         int8_mode: bool, x2=None, y2=None):
+                         int8_mode: bool, x2=None, y2=None, split_f32=False):
     """`fused_sym_topk` in plain PyTorch, on any device."""
     global plain_calls
     plain_calls += 1
     return _plain(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
-                  pvec_ext, flags=flags, k=k, tc=tc, int8_mode=int8_mode, x2=x2, y2=y2)
+                  pvec_ext, flags=flags, k=k, tc=tc, int8_mode=int8_mode, x2=x2, y2=y2,
+                  split_f32=split_f32)
 
 
 def fused_sym_topk(
     a,  # (sw, u_pad) or (gt, u_pad, tc) f32 | bf16 | int8 — the anchors
+    #     (u_pad doubled for the bf16 split stacks)
     d,  # (u_pad, tc) same dtype — inner tile t
     x_t,  # (sw,) f32 — X at the anchor's items
     x_c,
@@ -200,33 +209,37 @@ def fused_sym_topk(
     this block's columns and the col-side carry merged with its anchor
     rows (module docstring).
 
-    `precision` and `interpret` are the JAX function's TPU knobs; they are
-    accepted for the same call signature and change nothing here (f32
-    always runs as true f32). The split-bf16x3 mode (`split_f32`) is not
-    ported."""
-    if split_f32:
-        raise NotImplementedError("split_f32 (the bf16x3 sweep) is not ported")
+    With `split_f32` both operands are bf16 [hi; lo] stacks along the user
+    axis. `precision` and `interpret` are the JAX function's TPU knobs;
+    they are accepted for the same call signature and change nothing
+    here."""
+    split_f32 = bool(split_f32)
     if (x2 is None) != (y2 is None):
         raise ValueError("x2 and y2 go together (the asymmetric epilogue)")
     if a.device.type == "cpu":
         return fused_sym_topk_plain(
             a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
             pvec_ext, flags=flags, k=k, tc=tc, int8_mode=int8_mode, x2=x2, y2=y2,
+            split_f32=split_f32,
         )
     if a.device.type != "cuda":
         raise ValueError(f"fused_sym_topk runs on cuda or cpu, not {a.device}")
     return _launch(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
-                   pvec_ext, flags=flags, k=k, tc=tc, int8_mode=int8_mode, x2=x2, y2=y2)
+                   pvec_ext, flags=flags, k=k, tc=tc, int8_mode=int8_mode, x2=x2, y2=y2,
+                   split=split_f32)
 
 
 def _launch(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
-            pvec_ext, *, flags, k, tc, int8_mode, x2, y2):
+            pvec_ext, *, flags, k, tc, int8_mode, x2, y2, split):
     global kernel_launches
     from .build import check, load
 
     dev, dtype = a.device, a.dtype
     if dtype not in _MODES or (dtype == torch.int8) != bool(int8_mode):
         raise ValueError(f"operand dtype {dtype} does not fit int8_mode={int8_mode}")
+    if split and dtype != torch.bfloat16:
+        raise ValueError(f"the split mode takes bf16 stacks, not {dtype}")
+    mode = SPLIT_MODES["both"] if split else _MODES[dtype]
     if a.dim() == 2:
         # a row panel: the kernel reads the executor's tile layout, so the
         # panel is copied into it (the executor always passes tiles)
@@ -234,9 +247,10 @@ def _launch(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
         if sw % tc:
             raise ValueError(f"sw={sw} anchor rows do not split into tc={tc} tiles")
         a = a.view(sw // tc, tc, u_pad).transpose(1, 2).contiguous()
-    gt, u_pad, tc_a = a.shape
+    gt, a_k, tc_a = a.shape
     if tc_a != tc:
         raise ValueError(f"anchor tiles are {tc_a} wide, tc={tc}")
+    u_pad = a_k // 2 if split else a_k  # the kernel's K: one half's depth
     if tc % KERNEL_TILE:
         raise ValueError(f"tc={tc} is not a multiple of the kernel's {KERNEL_TILE}-wide blocks")
     sw = gt * tc
@@ -245,7 +259,7 @@ def _launch(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
         raise ValueError(f"k_pad={k_pad_r} is outside the kernel's 1..{MAX_KERNEL_K_PAD}")
     f32, i32 = torch.float32, torch.int32
     _check("a", a, a.shape, dtype, dev)
-    _check("d", d, (u_pad, tc), dtype, dev)
+    _check("d", d, (a_k, tc), dtype, dev)
     for name, v in (("x_t", x_t), ("x_c", x_c), ("x_d", x_d)):
         _check(name, v, (sw,), f32, dev)
     for name, v in (("y_t", y_t), ("y_c", y_c), ("y_d", y_d)):
@@ -278,9 +292,10 @@ def _launch(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
     cvals = torch.empty((k_pad_c, tc), dtype=f32, device=dev)
     cidx = torch.empty((k_pad_c, tc), dtype=i32, device=dev)
     flag_bits = sum(b for b, on in zip(_FLAG_BITS, flags) if on)
-    what = f"fused_sym_topk (sw={sw}, u_pad={u_pad}, tc={tc}, k_pad={k_pad_r}, {dtype})"
+    what = (f"fused_sym_topk (sw={sw}, u_pad={u_pad}, tc={tc}, k_pad={k_pad_r}, {dtype}, "
+            f"split={split})")
     with torch.cuda.device(dev):
-        check(lib.sym_product(_MODES[dtype], a.data_ptr(), d.data_ptr(), sw, u_pad, tc,
+        check(lib.sym_product(mode, a.data_ptr(), d.data_ptr(), sw, u_pad, tc,
                               vec_array, pvec_ext.data_ptr(), flag_bits,
                               scores_r.data_ptr(), scores_c.data_ptr(), stream), what)
         check(lib.sym_merge(1, scores_r.data_ptr(), sw, tc, k_pad_r, pvec_ext.data_ptr(),
@@ -293,12 +308,14 @@ def _launch(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
     return rvals, ridx, cvals, cidx
 
 
-def product_attrs(dtype) -> dict:
+def product_attrs(dtype, split: bool = False) -> dict:
     """Registers and local (spill) bytes a thread, dynamic shared memory a
     block and resident blocks per SM of the product kernel that `dtype`
-    (float32, bfloat16 or int8) runs; needs a card."""
+    (float32, bfloat16 or int8) runs, or with `split` the split-bf16x3
+    one; needs a card."""
     from .build import check, load
 
+    mode = SPLIT_MODES["both"] if split else _MODES[dtype]
     out = (ctypes.c_int * 4)()
-    check(load().sym_product_attrs(_MODES[dtype], out), f"sym_product_attrs({dtype})")
+    check(load().sym_product_attrs(mode, out), f"sym_product_attrs({dtype}, split={split})")
     return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), out))

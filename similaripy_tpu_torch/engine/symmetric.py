@@ -26,14 +26,18 @@ upper block triangle once:
     the host before the next pair starts;
   - on a mesh (``mesh=``) every step of the sweep runs on one rank
     (``sym_sharded.pair_schedule``) and a finished pair's rows are
-    all-gathered over the ranks and re-selected before they are copied.
+    all-gathered over the ranks and re-selected before they are copied;
+  - an f32 call with ``precision='high'`` runs K2 in its split-bf16x3 mode
+    (symmetric.py:877-896 of the JAX package): the tiles are [hi; lo] bf16
+    stacks 2 u_pad deep, anchors and inner tiles alike, densified by K5
+    from the split COO (``executor.split_coo``); data that bf16 holds
+    exactly rides compute_dtype='bfloat16' instead.
 
 The result equals the general executor's: the same epilogue, the same
 candidate rule (xy != 0), exact top-k. Left out of the port, as TPU
 scheduling only: the anchor prefill, the single-anchor mode and the
 ``SIMILARIPY_TPU_SYM_*`` knobs, the MXU binning of the densify, the
-split-bf16x3 products (``precision`` is a minimum; f32 runs as true f32),
-the timing laps and the asynchronous readback.
+timing laps and the asynchronous readback.
 """
 
 from __future__ import annotations
@@ -122,10 +126,12 @@ def epilogue_is_symmetric(pre: Preprocessed, params: SPlusParams) -> bool:
 # block runs at K2's rates, product and both merges, measured by
 # chip_smoke.py (phase times, live blocks at u_pad 200,960) on an NVIDIA
 # H100 80GB HBM3 at 700.00 W (PERF.md): f32 (tc 2,048) 47.2 TFLOP/s, bf16
-# (tc 2,048) 37.1, int8 (tc 4,096) 404 TOP/s; int4 runs as int8. K5
-# densified an f32 inner tile of 0.69 M entries, its zero fill included, in
-# 0.65 ms there: about 1e9 entries/s.
-_PRODUCT_RATE = {"int8": 404e12, "int4": 404e12, "bfloat16": 37.1e12, "float32": 47.2e12}
+# (tc 2,048) 238, the split-bf16x3 mode ("split", tc 2,048) 121 in f32
+# operations (364 in bf16 ones, three phases), int8 (tc 4,096) 404 TOP/s;
+# int4 runs as int8. K5 densified an f32 inner tile of 0.69 M entries, its
+# zero fill included, in 0.65 ms there: about 1e9 entries/s.
+_PRODUCT_RATE = {"int8": 404e12, "int4": 404e12, "bfloat16": 238e12, "float32": 47.2e12,
+                 "split": 121e12}
 _DENSIFY_NNZ_RATE = 1e9
 
 
@@ -158,7 +164,10 @@ def _plan(C: int, U: int, nnz: int, compute_dtype: str, budget: int,
     Larger anchor groups (gt) cut the inner re-densifies but pad the tile
     grid to a multiple of gt (padding costs whole products) and hold more
     memory: a pair's two anchor stacks plus K2's two f32 score planes
-    (sw x tc each). Every gt that fits is costed and the cheapest wins."""
+    (sw x tc each). Every gt that fits is costed and the cheapest wins.
+    `compute_dtype` "split" plans the split-bf16x3 mode: a tile of two bf16
+    halves, the f32 call's 4 bytes an element (its COO, twice the
+    entries, comes in `nnz`)."""
     u_pad = max(_round_up(U, 128), 128)
     isize = {"bfloat16": 2, "int8": 1, "int4": 1}.get(compute_dtype, 4)
     tc = min(4096 if isize <= 2 else 2048, _round_up(C, 128))
@@ -192,19 +201,23 @@ def _plan(C: int, U: int, nnz: int, compute_dtype: str, budget: int,
 
 
 def prep_coo_symmetric(pre: Preprocessed, compute_dtype: str, tc: int,
-                       n_tiles_dev: int, u_pad: int):
+                       n_tiles_dev: int, u_pad: int, split: bool = False):
     """The O(nnz) prep: the item permutation and the per-tile COO stacks.
 
     Depends only on matrix2, its quantization and the tile geometry, not
     on the epilogue vectors, so it is cached apart from them. Returns
     (coo, item_map): `coo` holds the per-tile users `ru` (sentinel u_pad),
-    slots `sl` and values `vv`, each (n_tiles_dev, p2); `item_map` maps a
-    device slot to its item (C for padding)."""
-    from .executor import _stack_m2_tiles_balanced
+    slots `sl` and values `vv`, each (n_tiles_dev, p2); with `split` the
+    COO of the tiles' [hi; lo] stacks (users below 2 u_pad, sentinel
+    2 u_pad, each (n_tiles_dev, 2 p2)); `item_map` maps a device slot to
+    its item (C for padding)."""
+    from .executor import _stack_m2_tiles_balanced, canonical, split_coo
 
     C = pre.n_output_cols
     int_mode = compute_dtype in ("int8", "int4")
     m2_csc = csc_quantized(pre.m2, pre.qscale2 if int_mode else None)
+    if split:
+        m2_csc = canonical(m2_csc)
     col_nnz = np.diff(m2_csc.indptr)
     # round-robin by nnz rank over ALL device tiles: the product cost is
     # set by the padded catalog alone, so spreading items into the padding
@@ -218,8 +231,10 @@ def prep_coo_symmetric(pre: Preprocessed, compute_dtype: str, tc: int,
     item_map = np.full(n_tiles_dev * tc, C, dtype=np.int64)
     for t, items in enumerate(tile_lists):
         item_map[t * tc : t * tc + items.shape[0]] = items
-    ru, sl, vv = _stack_m2_tiles_balanced(m2_csc, tile_lists, tc, u_pad)
-    return {"ru": ru, "sl": sl, "vv": vv}, item_map
+    coo = _stack_m2_tiles_balanced(m2_csc, tile_lists, tc, u_pad)
+    if split:
+        coo = split_coo(*coo, u_pad, axis=0)
+    return dict(zip(("ru", "sl", "vv"), coo)), item_map
 
 
 def prep_vecs_symmetric(pre: Preprocessed, item_map: np.ndarray, tc: int,
@@ -236,7 +251,8 @@ def prep_vecs_symmetric(pre: Preprocessed, item_map: np.ndarray, tc: int,
 
 
 def cached_prep_symmetric(pre: Preprocessed, compute_dtype: str, tc: int,
-                          n_tiles_dev: int, u_pad: int, device: torch.device):
+                          n_tiles_dev: int, u_pad: int, device: torch.device,
+                          split: bool = False):
     """Two-level prep cache: the COO stacks under a (matrix2, quantization,
     geometry, device) key in the device cache, the per-similarity vector
     layouts nested in that entry under their fingerprints, so a sweep of
@@ -250,13 +266,14 @@ def cached_prep_symmetric(pre: Preprocessed, compute_dtype: str, tc: int,
 
     int_mode = compute_dtype in ("int8", "int4")
     coo_key = (
-        "sym_coo", pre.fp2, pre.qscale2 if int_mode else None, int_mode,
+        "sym_coo", pre.fp2, pre.qscale2 if int_mode else None, int_mode, split,
         tc, n_tiles_dev, u_pad, str(device),
     )
     cached = _cache_get(coo_key)
     if cached is None:
         _evict_stale("sym_coo", pre.fp2, coo_key)
-        coo_host, item_map = prep_coo_symmetric(pre, compute_dtype, tc, n_tiles_dev, u_pad)
+        coo_host, item_map = prep_coo_symmetric(pre, compute_dtype, tc, n_tiles_dev, u_pad,
+                                                split)
         dev_coo = upload(coo_host)
         vec_cache: dict = {}
         _cache_put(coo_key, (dev_coo, item_map, vec_cache))
@@ -307,6 +324,7 @@ def execute_symmetric(
     params: SPlusParams,
     *,
     compute_dtype: str = "auto",
+    precision: str = "highest",
     budget_bytes: int,
     progress=None,
     device: torch.device,
@@ -315,7 +333,9 @@ def execute_symmetric(
 ):
     """Self-similarity top-k; returns host (C, k) vals f32 and idx int32.
 
-    f32 always runs as true f32 (the caller's `precision` is a minimum).
+    An f32 call with precision='high' runs K2's split-bf16x3 mode, or rides
+    bf16 when the data is exact in it (last_plan["f32x3"] is 'both' or
+    None); every other call runs its compute type as it is.
     `tile_fn` "plain" runs K2's and K5's plain versions even on a card
     (for comparisons only). With `mesh` (``parallel.make_mesh``) this rank
     runs its share of the pair schedule (``sym_sharded.pair_schedule``) on
@@ -330,6 +350,14 @@ def execute_symmetric(
     r_me, c_me = pmesh.coordinate(mesh)
     N, me = R_sh * C_sh, r_me * C_sh + c_me
     compute_dtype, inv_scale = ex.resolve_compute_dtype(compute_dtype, pre)
+    # precision='high' (symmetric.py:877-896): both sides are the one
+    # matrix, so 'both', or one exact bf16 phase when bf16 holds its values
+    f32x3 = None
+    if compute_dtype == "float32" and precision == "high":
+        if ex._bf16_exact(pre.fp2, pre.m2):
+            compute_dtype = "bfloat16"
+        else:
+            f32x3 = "both"
     int8_mode = compute_dtype in ("int8", "int4")
     cdt = ex.compute_cast(compute_dtype)
 
@@ -352,7 +380,12 @@ def execute_symmetric(
     # carry depth: no row has more than C candidates
     k_kern = min(k, C)
     k_pad = _round_up(k_kern, 8)
-    tc, gt, u_pad = _plan(C, U, pre.m2.nnz, compute_dtype, budget, k_pad)
+    if k_pad > sym_topk.MAX_KERNEL_K_PAD:
+        f32x3 = None  # the plain branch multiplies in true f32 (symmetric.py:913-920)
+    split = f32x3 is not None
+    # a split call plans as "split": 4 bytes an element, twice the COO entries
+    tc, gt, u_pad = _plan(C, U, pre.m2.nnz * (2 if split else 1),
+                          "split" if split else compute_dtype, budget, k_pad)
     if k_pad > sym_topk.MAX_KERNEL_K_PAD:
         step = _wide_k_block
     elif tile_fn == "plain":
@@ -369,8 +402,10 @@ def execute_symmetric(
     schedule = pair_schedule(n_tiles_dev, gt, N)
 
     dev_coo, vecs, item_map = cached_prep_symmetric(
-        pre, compute_dtype, tc, n_tiles_dev, u_pad, device
+        pre, compute_dtype, tc, n_tiles_dev, u_pad, device, split
     )
+    # what K5 densifies: the [hi; lo] bf16 stacks of a split call
+    tile_k, tile_cdt = (2 * u_pad, torch.bfloat16) if split else (u_pad, cdt)
     pvec_host = build_pvec(params, inv_scale)
     flags = params.static_flags()
     asym = not epilogue_is_symmetric(pre, params)
@@ -379,7 +414,7 @@ def execute_symmetric(
 
     ex.last_plan.clear()
     ex.last_plan.update(
-        compute_dtype=compute_dtype, tc=tc, gt=gt, u_pad=u_pad, k_pad=k_pad,
+        compute_dtype=compute_dtype, f32x3=f32x3, tc=tc, gt=gt, u_pad=u_pad, k_pad=k_pad,
         n_tiles=n_tiles_dev, n_groups=n_groups, sw=sw, pairs=len(schedule),
         asym=asym, mesh=(R_sh, C_sh), rank=me, budget=budget,
         # this rank's share of the schedule (all of it on one device)
@@ -409,7 +444,7 @@ def execute_symmetric(
         t0, t1 = a * gt, (a + 1) * gt
         return {
             "a": a,
-            "lhs": densify(*coo(t0, t1), u_pad=u_pad, tc=tc, cdt=cdt),  # (gt, u_pad, tc)
+            "lhs": densify(*coo(t0, t1), u_pad=tile_k, tc=tc, cdt=tile_cdt),  # (gt, tile_k, tc)
             "x": vec3("x", t0, t1),  # X at the anchor's items
             "y2": vec3("y", t0, t1) if asym else None,  # Y at the anchor's items
         }
@@ -420,7 +455,7 @@ def execute_symmetric(
         if own is not None:  # the tile is resident in an anchor: slice, no densify
             d = own["lhs"][t - own["a"] * gt]
         else:
-            d = densify(*coo(t, t + 1), u_pad=u_pad, tc=tc, cdt=cdt)[0]
+            d = densify(*coo(t, t + 1), u_pad=tile_k, tc=tc, cdt=tile_cdt)[0]
         y = vec3("y", t, t + 1)
         x2 = vec3("x", t, t + 1) if asym else None
         for a in sweepers:
@@ -433,6 +468,7 @@ def execute_symmetric(
                 an["lhs"], d, *an["x"], *y, crv[a], cri[a], rkth, ccv[t], cci[t],
                 torch.from_numpy(pv).to(device),
                 flags=flags, k=k_kern, tc=tc, int8_mode=int8_mode, x2=x2, y2=an["y2"],
+                split_f32=split,
             )
 
     out_vals = np.full((C, k), NEG_INF, np.float32)

@@ -5,6 +5,7 @@ body ``_kernel``, epilogue ``_epilogue_val``). For one row panel against
 one column tile:
 
     xy   = m1_dense @ d               f32 FMA | bf16 -> f32 | int8 -> exact int32
+                                      | split-bf16x3 -> 3 or 2 bf16 phases in f32
     val  = S-Plus epilogue(xy)        masks fold into the candidate test
     out  = top-k_pad of each row      ids col_base + col, sorted descending,
                                       merged with a carried top-k_pad if given
@@ -14,6 +15,13 @@ returns ``(vals, idx)`` of shape (k_pad, trp). On CUDA tensors it launches
 the hand-written kernel of ``csrc/tile_topk.cu`` (two launches: product with
 the fused epilogue, then the per-row top-k) or raises; on CPU tensors it
 runs ``fused_tile_topk_plain``, the same function in plain PyTorch.
+
+``precision='high'`` on f32 data runs the split-bf16x3 modes
+(``split_f32``, pallas_kernels.py:575): ``split_bf16x3`` cuts each f32
+operand into a bf16 [hi; lo] stack along the contraction axis, and the
+product sums hi.hi + lo.hi + hi.lo ('both'), or a.d_hi + a.d_lo ('rhs',
+the panel exact in bf16), or a_hi.d + a_lo.d ('lhs', the tile exact), in
+f32: XLA's HIGH precision on bf16 tensor cores.
 
 Ties follow the TPU kernel: within a tile the lowest column first, and tile
 entries before carry entries; with a carry, only tile values strictly above
@@ -42,6 +50,8 @@ kernel_launches = 0
 plain_calls = 0
 
 _MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# the kernel's split-bf16x3 modes (Mode in csrc/splus_epilogue.cuh)
+SPLIT_MODES = {"both": 3, "rhs": 4, "lhs": 5}
 _FLAG_BITS = (1, 2, 4, 8, 16, 32)  # static_flags() order, as in the .cu file
 
 # int8 products run as float64 on the plain path (exact below 2**53);
@@ -83,10 +93,58 @@ def splus_epilogue(xy, candidate, x_t, x_c, x_d, y_t, y_c, y_d, pvec, flags):
     return torch.where(keep, val, torch.full_like(val, NEG_INF))
 
 
-def _product_plain(a, d, int8_mode: bool, bias=None):
+def split_bf16x3_parts(x):
+    """(hi, lo) bf16 halves of f32 `x` (pallas_kernels.py:112 split_bf16x3):
+    hi rounds x to the nearest bf16 by an integer carry and mask on its
+    bits (+0x8000, then the low 16 bits cleared), and lo = bf16(x - hi),
+    where x - hi is exact in f32. hi + lo carries about 16 of the 24 bits,
+    and the lo.lo product that the phases drop is below 2**-16 of x.y.
+    Finite inputs well below f32's largest, as the engine's are."""
+    hi_f = ((x.contiguous().view(torch.int32) + 0x8000) & -0x10000).view(torch.float32)
+    return hi_f.to(torch.bfloat16), (x - hi_f).to(torch.bfloat16)
+
+
+def split_bf16x3(x, axis: int):
+    """f32 -> the [hi; lo] bf16 stack along `axis` (split_bf16x3_parts)."""
+    return torch.cat(split_bf16x3_parts(x), dim=axis)
+
+
+def split_mode(split_f32):
+    """The JAX functions' `split_f32` (False, True, 'both', 'rhs' or 'lhs')
+    as None or one of SPLIT_MODES."""
+    if split_f32 is False or split_f32 is None:
+        return None
+    mode = "both" if split_f32 is True else split_f32
+    if mode not in SPLIT_MODES:
+        raise ValueError(f"unknown split mode {split_f32!r}")
+    return mode
+
+
+def _split_product_plain(a, d, split: str):
+    """a . d over split-bf16x3 stacks: each phase an f32 product of
+    bf16-valued f32 operands (the products are exact), summed in the JAX
+    kernel's phase order (_split_maps)."""
+    a, d = a.to(torch.float32), d.to(torch.float32)
+    a_lo = d_lo = None
+    if split in ("both", "lhs"):
+        a, a_lo = a.chunk(2, dim=1)
+    if split in ("both", "rhs"):
+        d, d_lo = d.chunk(2, dim=0)
+    with full_f32_matmul():
+        xy = a @ d
+        if a_lo is not None:
+            xy = xy + a_lo @ d
+        if d_lo is not None:
+            xy = xy + a @ d_lo
+    return xy
+
+
+def _product_plain(a, d, int8_mode: bool, bias=None, split=None):
     """bias + a @ d as f32: float64 for int8 (exact, the int32 bias
-    included), f32 otherwise; TF32 is kept off on the card so "f32" means
-    true f32."""
+    included), the phases of a split mode (`split`), f32 otherwise; TF32 is
+    kept off on the card so "f32" means true f32."""
+    if split is not None:
+        return _split_product_plain(a, d, split)
     if int8_mode:
         a64 = a.to(torch.float64)
         cols = []
@@ -115,11 +173,11 @@ def full_f32_matmul():
 
 
 def tile_scores_plain(m1_dense, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext,
-                      allowed, fmask, tmask, *, flags, int8_mode, bias=None):
+                      allowed, fmask, tmask, *, flags, int8_mode, bias=None, split=None):
     """The (trp, tc) masked epilogue scores of bias + m1_dense @ d, -inf
     where dropped."""
     pv = pvec_ext.tolist()
-    xy = _product_plain(m1_dense, d, int8_mode, bias)
+    xy = _product_plain(m1_dense, d, int8_mode, bias, split)
     if int8_mode:
         xy = xy * pv[9]  # inv_scale
     candidate = xy != 0.0
@@ -156,23 +214,23 @@ def select_topk_plain(val, carry, k_pad: int, col_base: int):
 
 
 def _plain(m1_dense, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext, allowed,
-           fmask, tmask, carry, *, flags, k_pad, int8_mode):
+           fmask, tmask, carry, *, flags, k_pad, int8_mode, split_f32=False):
     val = tile_scores_plain(
         m1_dense, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext, allowed, fmask,
-        tmask, flags=flags, int8_mode=int8_mode,
+        tmask, flags=flags, int8_mode=int8_mode, split=split_mode(split_f32),
     )
     return select_topk_plain(val, carry, k_pad, int(pvec_ext[PVEC_COL_BASE]))
 
 
 def fused_tile_topk_plain(m1_dense, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext,
                           allowed=None, fmask=None, tmask=None, carry=None, *,
-                          flags: tuple, k_pad: int, int8_mode: bool):
+                          flags: tuple, k_pad: int, int8_mode: bool, split_f32=False):
     """`fused_tile_topk` in plain PyTorch, on any device."""
     global plain_calls
     plain_calls += 1
     return _plain(
         m1_dense, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext, allowed, fmask,
-        tmask, carry, flags=flags, k_pad=k_pad, int8_mode=int8_mode,
+        tmask, carry, flags=flags, k_pad=k_pad, int8_mode=int8_mode, split_f32=split_f32,
     )
 
 
@@ -188,8 +246,8 @@ def _check(name, t, shape, dtype, device):
 
 
 def fused_tile_topk(
-    m1_dense,  # (trp, u_pad) f32 | bf16 | int8
-    d,  # (u_pad, tc) same dtype
+    m1_dense,  # (trp, u_pad) f32 | bf16 | int8; (trp, 2 u_pad) bf16 split stack
+    d,  # (u_pad, tc) same dtype; (2 u_pad, tc) bf16 split stack
     x_t,  # (trp,) f32
     x_c,
     x_d,
@@ -214,32 +272,34 @@ def fused_tile_topk(
     """Returns (vals, idx) of shape (k_pad, trp): per-row top-k_pad of the
     fused similarity tile, sorted descending, ids global via col_base.
 
-    `precision`, `tm`, `kb` and `interpret` are the JAX function's TPU
-    knobs; they are accepted for the same call signature and change
-    nothing here (f32 always runs as true f32). The split-bf16x3 modes
-    (`split_f32`) are not ported yet."""
-    if split_f32:
-        raise NotImplementedError("split_f32 (the bf16x3 sweep) is not ported yet")
+    With `split_f32` (True or 'both', 'rhs', 'lhs') the operands are bf16
+    stacks: `split_bf16x3` of the f32 side(s) along the contraction axis,
+    a plain bf16 cast of the side that bf16 holds exactly (module
+    docstring). `precision`, `tm`, `kb` and `interpret` are the JAX
+    function's TPU knobs; they are accepted for the same call signature and
+    change nothing here."""
+    split = split_mode(split_f32)
     if m1_dense.device.type == "cpu":
         return fused_tile_topk_plain(
             m1_dense, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext, allowed,
             fmask, tmask, carry, flags=flags, k_pad=k_pad, int8_mode=int8_mode,
+            split_f32=split or False,
         )
     if m1_dense.device.type != "cuda":
         raise ValueError(f"fused_tile_topk runs on cuda or cpu, not {m1_dense.device}")
     return _launch(
         m1_dense, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext, allowed, fmask,
-        tmask, carry, flags=flags, k_pad=k_pad, int8_mode=int8_mode,
+        tmask, carry, flags=flags, k_pad=k_pad, int8_mode=int8_mode, split=split,
     )
 
 
 def _launch(m1_dense, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext, allowed,
-            fmask, tmask, carry, *, flags, k_pad, int8_mode):
+            fmask, tmask, carry, *, flags, k_pad, int8_mode, split):
     global kernel_launches
     from .build import load
 
     dev = m1_dense.device
-    trp, u_pad = m1_dense.shape
+    trp = m1_dense.shape[0]
     tc = d.shape[1]
     dtype = m1_dense.dtype
     if dtype not in _MODES or (dtype == torch.int8) != bool(int8_mode):
@@ -247,8 +307,22 @@ def _launch(m1_dense, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext, allowed,
     if not 0 < k_pad <= MAX_KERNEL_K_PAD:
         raise ValueError(f"k_pad={k_pad} is outside the kernel's 1..{MAX_KERNEL_K_PAD}")
     f32, u8 = torch.float32, torch.uint8
-    _check("m1_dense", m1_dense, (trp, u_pad), dtype, dev)
-    _check("d", d, (u_pad, tc), dtype, dev)
+    mode = _MODES[dtype]
+    a_k = d_k = u_pad = d.shape[0]
+    if split is not None:
+        if dtype != torch.bfloat16:
+            raise ValueError(f"split mode {split!r} takes bf16 stacks, not {dtype}")
+        mode = SPLIT_MODES[split]
+        u_pad = d_k // 2 if split in ("both", "rhs") else d_k
+        a_k = 2 * u_pad if split in ("both", "lhs") else u_pad
+        # the split kernels copy 16 bytes at a time (the executor's shapes)
+        if u_pad % 8 or tc % 8 or m1_dense.data_ptr() % 16 or d.data_ptr() % 16:
+            raise ValueError(
+                f"split mode {split!r} needs u_pad and tc multiples of 8 and 16-byte "
+                f"aligned operands (u_pad={u_pad}, tc={tc})"
+            )
+    _check("m1_dense", m1_dense, (trp, a_k), dtype, dev)
+    _check("d", d, (d_k, tc), dtype, dev)
     for name, v in (("x_t", x_t), ("x_c", x_c), ("x_d", x_d)):
         _check(name, v, (trp,), f32, dev)
     for name, v in (("y_t", y_t), ("y_c", y_c), ("y_d", y_d)):
@@ -276,7 +350,7 @@ def _launch(m1_dense, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext, allowed,
 
     with torch.cuda.device(dev):
         err = lib.tile_product(
-            _MODES[dtype], ptr(m1_dense), ptr(d), trp, u_pad, tc,
+            mode, ptr(m1_dense), ptr(d), trp, u_pad, tc,
             ptr(x_t), ptr(x_c), ptr(x_d), ptr(y_t), ptr(y_c), ptr(y_d),
             ptr(pvec_ext), ptr(allowed), ptr(fmask), ptr(tmask), flag_bits,
             ptr(scores), stream,
@@ -290,20 +364,22 @@ def _launch(m1_dense, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext, allowed,
     if err != 0:
         raise RuntimeError(
             f"tile_topk kernel launch failed: {lib.tile_error_string(err).decode()} "
-            f"(trp={trp}, u_pad={u_pad}, tc={tc}, k_pad={k_pad}, dtype={dtype})"
+            f"(trp={trp}, u_pad={u_pad}, tc={tc}, k_pad={k_pad}, dtype={dtype}, split={split})"
         )
     kernel_launches += 1
     return vals, idx
 
 
-def product_attrs(dtype, bias: bool = False) -> dict:
+def product_attrs(dtype, bias: bool = False, split=None) -> dict:
     """Registers and local (spill) bytes a thread, shared memory a block and
     resident blocks per SM of the product kernel that `dtype` (float32,
     bfloat16 or int8) runs for 16-byte aligned operands; `bias` asks for
-    K3's kernel with the hot-prefix bias. Needs a card."""
+    K3's kernel with the hot-prefix bias, `split` ('both', 'rhs', 'lhs')
+    for a split-bf16x3 mode. Needs a card."""
     from .build import check, load
 
+    mode = SPLIT_MODES[split] if split else _MODES[dtype]
     out = (ctypes.c_int * 4)()
-    check(load().tile_product_attrs(_MODES[dtype], int(bias), out),
-          f"tile_product_attrs({dtype}, bias={bias})")
+    check(load().tile_product_attrs(mode, int(bias), out),
+          f"tile_product_attrs({dtype}, bias={bias}, split={split})")
     return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), out))

@@ -501,8 +501,13 @@ def recommend(
     with each user's already-seen items excluded before the top-k
     (``filter_cols=urm``). Not part of the reference's public API — it is
     sugar over :func:`dot_product` and accepts the same keyword surface.
-    The exclusion runs as a per-row filter mask inside the tile kernel
-    (the JAX package's exclude-seen fold is not ported yet).
+    The exclusion runs as the exclude-seen fold
+    (``engine/executor.py::_exclude_seen_fold``): the scores are taken
+    against ``model.T - M*I``, which pushes every seen item far below any
+    threshold >= 0 and leaves unseen items exact, so no per-row filter mask
+    is built. Its gate needs every ``urm`` value > 0, a float compute type,
+    the plain dot-product epilogue and a threshold >= 0; otherwise the
+    exclusion runs as a per-row filter mask inside the tile kernel.
 
     Args:
         urm: sparse (users x items) interaction matrix.
@@ -591,7 +596,11 @@ _COMMON_DOC = """
             matrices integerize to |v| <= 127, else float32), 'float32',
             'bfloat16', or 'int8'.
         precision: 'highest' (default), 'high' or 'default'; a minimum
-            guarantee — this port runs float32 products in true f32.
+            guarantee. 'highest' and 'default' run float32 products in
+            true f32; 'high' runs them in split-bf16x3 (hi.hi + lo.hi +
+            hi.lo in bf16 on the tensor cores, summed in f32; one phase
+            fewer where one side is exact in bf16, plain bf16 where both
+            are), as the JAX package does.
         device: 'cuda' (default) or 'cpu'; 'cuda' without a card raises
             RuntimeError.
         mesh: a ('rows', 'cols') DeviceMesh from

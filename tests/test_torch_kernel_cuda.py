@@ -15,9 +15,13 @@ import torch
 from similaripy_tpu_torch.benchmarks import probes
 from similaripy_tpu_torch.engine import gather, panel_topk, scatter, sym_topk, tile_topk
 from torch_k1_cases import CARD_CASES as K1_CARD_CASES
-from torch_k1_cases import CASES, assert_same, make_case, run_port
+from torch_k1_cases import CASES, SPLIT_CARD_CASES, SPLIT_CASES, assert_same, make_case
+from torch_k1_cases import assert_same_split, make_split_case, run_port, run_port_split
+from torch_k1_cases import split_card_ok
 from torch_k2_cases import CARD_CASES as K2_CARD_CASES
 from torch_k2_cases import CASES as K2_CASES
+from torch_k2_cases import SPLIT_CARD_CASES as K2_SPLIT_CARD_CASES
+from torch_k2_cases import SPLIT_CASES as K2_SPLIT_CASES
 from torch_k2_cases import EPILOGUES, case_id, make_inputs, torch_fn
 from torch_k2_cases import assert_same as assert_same_k2
 from torch_k3_cases import CARD_CASES as K3_CARD_CASES
@@ -69,7 +73,30 @@ def test_kernel_matches_plain_card_shapes(mode, carry_on, mask, label):
     assert_same(mode, got, ref, case[6])
 
 
-K2_ALL = K2_CASES + K2_CARD_CASES
+def _split_plain_on_card(split, a, d, vecs, pv, masks, carry, flags, k_pad):
+    return run_port_split(tile_topk.fused_tile_topk_plain, split, a, d, vecs, pv, masks,
+                          carry, flags, k_pad, device="cuda")
+
+
+K1_SPLIT_ALL = [c + (None,) for c in SPLIT_CASES if split_card_ok(*c)] + SPLIT_CARD_CASES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split,carry_on,mask,label", K1_SPLIT_ALL,
+                         ids=["-".join(map(str, c)) for c in K1_SPLIT_ALL])
+def test_split_kernel_matches_plain(split, carry_on, mask, label):
+    """K1's split-bf16x3 modes (tile_bf16_kernel with 3 or 2 phases) on the
+    CPU parity shapes that fit its 16-byte copies and at the edges of the
+    ring and blocks."""
+    _need_card()
+    case = make_split_case(split, carry_on, mask, _split_plain_on_card, label)
+    tile_topk.reset_counts()
+    got = run_port_split(tile_topk.fused_tile_topk, split, *case, device="cuda")
+    assert tile_topk.kernel_launches == 1 and tile_topk.plain_calls == 0
+    assert_same_split(got, _split_plain_on_card(split, *case), case[6])
+
+
+K2_ALL = K2_CASES + K2_CARD_CASES + K2_SPLIT_CASES + K2_SPLIT_CARD_CASES
 
 
 @pytest.mark.cuda

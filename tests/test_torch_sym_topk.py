@@ -22,7 +22,8 @@ import torch
 
 from similaripy_tpu.engine.pallas_kernels import fused_sym_topk as jax_sym_topk
 from similaripy_tpu_torch.engine import sym_topk
-from torch_k2_cases import CASES, EPILOGUES, assert_same, case_id, make_inputs, torch_fn
+from torch_k2_cases import CASES, EPILOGUES, SPLIT_CASES, assert_same, case_id, make_inputs
+from torch_k2_cases import torch_fn
 
 torch.set_num_threads(2)
 
@@ -96,9 +97,15 @@ def test_ties_row_side_tile_first_col_side_carry_first():
 
 
 def test_split_mode_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        sym_topk.fused_sym_topk(*([None] * 14), flags=(False,) * 6, k=8, tc=128,
-                                int8_mode=False, split_f32=True)
+    """The split-bf16x3 mode, once refused here, is ported: on CPU tensors
+    it runs the plain version (held against the JAX kernel in
+    test_torch_split.py)."""
+    case = SPLIT_CASES[0]
+    args, kw = make_inputs(case, torch_fn(sym_topk.fused_sym_topk_plain, "split"))
+    sym_topk.reset_counts()
+    out = torch_fn(sym_topk.fused_sym_topk, "split")(*args, **kw)
+    assert sym_topk.plain_calls == 1 and sym_topk.kernel_launches == 0
+    assert out[0].shape == args[8].shape and out[2].shape == args[11].shape
 
 
 def test_sym_k_pads_are_k_deep():

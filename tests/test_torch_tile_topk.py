@@ -20,7 +20,7 @@ import torch
 
 from similaripy_tpu.engine.pallas_kernels import fused_tile_topk as jax_tile_topk
 from similaripy_tpu_torch.engine import tile_topk
-from torch_k1_cases import CASES, assert_same, make_case, run_port
+from torch_k1_cases import CASES, assert_same, make_case, run_port, run_port_split
 
 torch.set_num_threads(2)
 
@@ -73,10 +73,19 @@ def test_plain_ties_lowest_column_then_tile_before_carry():
 
 
 def test_split_modes_are_not_ported():
+    """The split-bf16x3 modes, once refused here, are ported: on CPU
+    tensors each runs the plain version (held against the JAX kernel in
+    test_torch_split.py), and an unknown mode raises."""
     a, d, vecs, pv, masks, carry, flags, k_pad = make_case("f32", False, "none", None)
-    with pytest.raises(NotImplementedError):
+    for split in ("both", "rhs", "lhs"):
+        tile_topk.reset_counts()
+        vals, idx = run_port_split(tile_topk.fused_tile_topk, split, a, d, vecs, pv, masks,
+                                   carry, flags, k_pad)
+        assert tile_topk.plain_calls == 1 and tile_topk.kernel_launches == 0
+        assert vals.shape == idx.shape == (k_pad, a.shape[0])
+    with pytest.raises(ValueError):
         tile_topk.fused_tile_topk(
             torch.from_numpy(a), torch.from_numpy(d), *map(torch.from_numpy, vecs),
             torch.from_numpy(pv), flags=flags, k_pad=k_pad, int8_mode=False,
-            split_f32="rhs",
+            split_f32="middle",
         )

@@ -151,3 +151,128 @@ def assert_same(mode, got, ref, flags):
         rel = POW_RTOL if mode == "int8" else 1e-5
         np.testing.assert_allclose(gv[fin], rv[fin], rtol=rel, atol=0)
     np.testing.assert_array_equal(gi[not_tied(rv, rel)], ri[not_tied(rv, rel)])
+
+
+# ---------------------------------------------------------------------------
+# the split-bf16x3 modes (precision='high' on f32 data): the f32 side(s) go
+# to K1 as split_bf16x3 stacks, a side that bf16 holds exactly as a plain
+# bf16 operand ('rhs': the panel, 'lhs': the tile)
+# ---------------------------------------------------------------------------
+
+SPLITS = ("both", "rhs", "lhs")
+# CPU parity against the JAX kernel: every mode x carry x mask, on SHAPES
+SPLIT_CASES = [(split, carry_on, mask)
+               for split in SPLITS for carry_on in (False, True) for mask in MASKS]
+# card only, as CARD_SHAPES for the split kernels, which take 16-byte copies
+# (u and tc multiples of 8): K shorter than one slab of the 3-slab ring of
+# 64 K rows, with fewer rows than a block; M = 256 with K ending mid-ring and mid-slab
+# and a ragged last column block; the executor's widest tile
+SPLIT_CARD_SHAPES = [("split-ring-short", (40, 40, 96, 16)),
+                     ("split-m256-mid-ring", (256, 1000, 264, 40)),
+                     ("split-widest-tc", (136, 384, 8192, 104))]
+SPLIT_CARD_CASES = [(split, carry_on, mask, label)
+                    for (label, _), (carry_on, mask) in zip(
+                        SPLIT_CARD_SHAPES, ((True, "filter"), (False, "allowed"), (True, "target")))
+                    for split in SPLITS]
+# kernel against plain version on the card: both sum the same exact bf16
+# products in f32, in another order (rtol as the f32 cases; these cases
+# measured at most 5.9e-07 relative in chip_smoke.py on an H100 80GB HBM3
+# at 700 W)
+SPLIT_RTOL = 1e-5
+# the same at the main path's depth (K 200,960: the kernel adds 3,140
+# slabs' partial sums to its f32 total, each rounded; the plain version's
+# library products sum in another order): measured 1.03e-05 relative at
+# the 1,024-item cosine tile in mode 'both' (one value of 106,496) in
+# chip_smoke.py on an H100 80GB HBM3 at 700 W
+SPLIT_RTOL_FULL_K = 3e-5
+
+
+def split_card_ok(split, carry_on, mask):
+    """Whether a CPU parity case also fits the split kernels' 16-byte
+    copies (u and tc multiples of 8), so that the card runs it too."""
+    si, ki = SPLITS.index(split), MASKS.index(mask)
+    _, u, tc, _ = SHAPES[(si + ki + carry_on) % len(SHAPES)]
+    return u % 8 == 0 and tc % 8 == 0
+
+
+def assert_same_split(got, ref, flags, rtol=SPLIT_RTOL):
+    """assert_same for a split mode, kernel against plain version: values
+    at `rtol` in every slot, ids where the values are not tied, except the
+    last slot, whose lower neighbour (the first value the top-k drops) is
+    not in the output, so a near-tie across the cut cannot be seen."""
+    (gv, gi), (rv, ri) = got, ref
+    assert gv.shape == rv.shape and gi.shape == ri.shape
+    fin = np.isfinite(rv)
+    np.testing.assert_array_equal(np.isfinite(gv), fin)
+    np.testing.assert_allclose(gv[fin], rv[fin], rtol=rtol, atol=0)
+    ok = not_tied(rv, rtol)
+    ok[-1] = False
+    bad = np.argwhere(ok & (gi != ri))
+    assert bad.size == 0, f"ids differ at untied (slot, row) {bad[:8].tolist()}"
+
+
+def make_split_case(split, carry_on, mask, carry_fn, label=None):
+    """make_case for a split mode: f32 operands (not exact in bf16), the
+    side that the mode leaves whole rounded to bf16 values; `carry_fn`
+    takes (split, a, d, vecs, pv, masks, carry, flags, k_pad)."""
+    si, ki = SPLITS.index(split), MASKS.index(mask)
+    if label is None:
+        rng = np.random.default_rng(500 + 10 * si + 2 * ki + carry_on)
+        trp, u, tc, k_pad = SHAPES[(si + ki + carry_on) % len(SHAPES)]
+    else:
+        li = [name for name, _ in SPLIT_CARD_SHAPES].index(label)
+        rng = np.random.default_rng(2000 + 10 * li + si)
+        trp, u, tc, k_pad = dict(SPLIT_CARD_SHAPES)[label]
+    flags, p = FLAG_SETS[(ki + 2 * carry_on + si) % len(FLAG_SETS)]
+
+    def operands_of(rng):
+        a, d, vecs = operands(rng, "f32", trp, u, tc)
+        if split == "rhs":
+            a = torch.from_numpy(a).bfloat16().float().numpy()
+        if split == "lhs":
+            d = torch.from_numpy(d).bfloat16().float().numpy()
+        return a, d, vecs
+
+    a, d, vecs = operands_of(rng)
+    pv = np.zeros(16, np.float32)
+    pv[:9] = p
+    pv[9] = 1.0
+    pv[10] = 3 * tc
+    masks = {}
+    if mask == "allowed":
+        masks["allowed"] = (rng.random(tc) < 0.7).astype(np.uint8)
+    elif mask == "filter":
+        masks["fmask"] = (rng.random((trp, tc)) < 0.4).astype(np.uint8)
+    elif mask == "target":
+        masks["tmask"] = (rng.random((trp, tc)) < 0.4).astype(np.uint8)
+    carry = None
+    if carry_on:
+        _, d2, vecs2 = operands_of(rng)
+        pv0 = pv.copy()
+        pv0[10] = 0
+        carry = carry_fn(split, a, d2, vecs[:3] + vecs2[3:], pv0, masks, None, flags, k_pad)
+    return a, d, vecs, pv, masks, carry, flags, k_pad
+
+
+def split_operands(split, a, d, device="cpu"):
+    """The bf16 operands of a split mode from f32 numpy a (trp, u) and d
+    (u, tc): split_bf16x3 stacks of the split side(s), a bf16 cast of the
+    other."""
+    from similaripy_tpu_torch.engine.tile_topk import split_bf16x3
+
+    ta, td = torch.from_numpy(a).to(device), torch.from_numpy(d).to(device)
+    ta = split_bf16x3(ta, 1) if split in ("both", "lhs") else ta.bfloat16()
+    td = split_bf16x3(td, 0) if split in ("both", "rhs") else td.bfloat16()
+    return ta, td
+
+
+def run_port_split(fn, split, a, d, vecs, pv, masks, carry, flags, k_pad, device="cpu"):
+    dev = torch.device(device)
+    ta, td = split_operands(split, a, d, dev)
+    vals, idx = fn(
+        ta, td, *(torch.from_numpy(v).to(dev) for v in vecs), pvec_from_reference(pv, dev),
+        **{k: torch.from_numpy(v).to(dev) for k, v in masks.items()},
+        carry=None if carry is None else tuple(torch.from_numpy(c).to(dev) for c in carry),
+        flags=flags, k_pad=k_pad, int8_mode=False, split_f32=split,
+    )
+    return vals.cpu().numpy(), idx.cpu().numpy()

@@ -84,6 +84,37 @@ CARD_CASES += [
            full_range=True)]
 
 
+# the split-bf16x3 mode (precision='high' on f32 data, mode "split": f32
+# items whose anchors and tiles go to K2 as split_bf16x3 stacks along the
+# user axis). CPU parity against the JAX kernel: every block kind, cold and
+# warm, both epilogues, the anchors as tiles and as a row panel
+SPLIT_CASES = [
+    _case("split", block, carry_on, ("sym", "asym")[(bi + carry_on) % 2],
+          layout="2d" if (bi, carry_on) == (0, True) else "3d",
+          tc=256 if block == "live" else 128)
+    for bi, block in enumerate(BLOCKS)
+    for carry_on in (False, True)
+] + [_case("split", "cut", True, "sym", gt=3, label="band-cut")]
+# on the card only: the main path's widths (sw = 2,048, gt 1; sw = 18,432,
+# gt 9, warm and asymmetric), the ring's edges (K shorter than one slab of
+# the 3-slab ring of 64 K rows; K ending mid-ring and mid-slab), a diagonal
+# block with the asymmetric epilogue at tc 2,048, and a band that cuts the
+# anchor group. Kernel against plain version: the same exact bf16 products
+# summed in f32 in another order (rtol as the f32 cases, 1e-5)
+SPLIT_CARD_CASES = [
+    _case("split", "live", carry_on, epi, tc=2048, gt=gt, u=512, k=100)
+    for carry_on, epi, gt in ((False, "sym", 1), (True, "asym", 9))
+] + [
+    _case("split", block, carry_on, epi, tc=tc, gt=gt, u=u, k=k, label=label)
+    for label, block, carry_on, epi, tc, gt, u, k in (
+        ("ring-short-u40", "diagonal", True, "asym", 128, 2, 40, 16),
+        ("mid-ring-u1000", "live", True, "sym", 384, 2, 1000, 40),
+        ("band-cut-gt3", "cut", True, "sym", 256, 3, 512, 32),
+        ("asym-diagonal-tc2048", "diagonal", False, "asym", 2048, 2, 640, 100),
+    )
+]
+
+
 def case_id(c) -> str:
     return (f"{c['mode']}-{c['block']}-{'warm' if c['carry_on'] else 'cold'}-{c['epi']}"
             f"-{c['layout']}-k{c['k']}-tc{c['tc']}-gt{c['gt']}"
@@ -179,16 +210,24 @@ def make_inputs(c, fn):
 
 def torch_fn(fn, mode, device="cpu"):
     """`fn` (fused_sym_topk or its plain version) over numpy arguments on
-    `device`, returning numpy."""
-    dt = TORCH_DTYPES[mode]
+    `device`, returning numpy; mode "split" hands it the split_bf16x3
+    stacks of f32 anchors and tile."""
+    dt = TORCH_DTYPES.get(mode, torch.float32)
     dev = torch.device(device)
 
     def call(a, d, *rest, x2=None, y2=None, **kw):
         def tt(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
+        ta, td = tt(a).to(dt), tt(d).to(dt)
+        if mode == "split":
+            from similaripy_tpu_torch.engine.tile_topk import split_bf16x3
+
+            # the user axis: 1 of (gt, u, tc) tiles and of an (sw, u) panel
+            ta, td = split_bf16x3(ta, 1), split_bf16x3(td, 0)
+            kw["split_f32"] = True
         vecs, (crv, cri, rkth, ccv, cci, pv) = rest[:6], rest[6:]
-        out = fn(tt(a).to(dt), tt(d).to(dt), *map(tt, vecs), tt(crv), tt(cri), tt(rkth),
+        out = fn(ta, td, *map(tt, vecs), tt(crv), tt(cri), tt(rkth),
                  tt(ccv), tt(cci), pvec_from_reference(pv, dev),
                  x2=None if x2 is None else tuple(map(tt, x2)),
                  y2=None if y2 is None else tuple(map(tt, y2)), **kw)
@@ -197,10 +236,16 @@ def torch_fn(fn, mode, device="cpu"):
     return call
 
 
-def assert_same(mode, got, ref, flags):
+def assert_same(mode, got, ref, flags, split_rtol=1e-5):
     """Both sides: equal finite slots; int8 bit-equal (through pow:
-    POW_RTOL), f32 and bf16 within rtol 1e-5 (sums in another order); ids
-    equal where values are not tied."""
+    POW_RTOL), f32, bf16 and split within rtol 1e-5 (sums in another
+    order; split at `split_rtol`, which the full-width check in
+    chip_smoke.py widens as torch_k1_cases.SPLIT_RTOL_FULL_K says); ids
+    equal where values are not tied (for split, not in the last slot
+    either: its lower neighbour, the first value the top-k drops, is not
+    in the output, and the split kernel's f32 sums differ from the plain
+    version's by up to a few 1e-6, so a near-tie across the cut can swap
+    an id there)."""
     for side, (gv, gi), (rv, ri) in (("row", got[:2], ref[:2]), ("col", got[2:], ref[2:])):
         assert gv.shape == rv.shape and gi.shape == ri.shape, side
         fin = np.isfinite(rv)
@@ -209,7 +254,10 @@ def assert_same(mode, got, ref, flags):
             np.testing.assert_array_equal(gv[fin], rv[fin], err_msg=side)
             rel = 0.0
         else:
-            rel = POW_RTOL if mode == "int8" else 1e-5
+            rel = POW_RTOL if mode == "int8" else split_rtol if mode == "split" else 1e-5
             np.testing.assert_allclose(gv[fin], rv[fin], rtol=rel, atol=0, err_msg=side)
         ok = not_tied(rv, rel)
-        np.testing.assert_array_equal(gi[ok], ri[ok], err_msg=side)
+        if mode == "split":
+            ok[-1] = False
+        bad = np.argwhere(ok & (gi != ri))
+        assert bad.size == 0, f"{side}: ids differ at untied (slot, row) {bad[:8].tolist()}"

@@ -448,3 +448,37 @@ def check_ranks(recs, name, world):
         # the ranks' blocks partition the schedule
         assert sum(r["k2_plain"] for r in recs) == sum(
             schedule_anatomy(n_tiles=r0["plan"]["n_tiles"], gt=r0["plan"]["gt"], N=1)["k2_blocks"])
+
+
+# ---------------------------------------------------------------------------
+# precision='high' on f32 data (tests/test_torch_split.py): the split-bf16x3
+# modes on both routes, held against the port's single device
+# ---------------------------------------------------------------------------
+
+HIGH = dict(compute_dtype="float32", precision="high")
+
+
+def _float_pair():
+    """Integer ratings and a float model (tests/test_pallas_kernel.py's
+    _int_float_pair): a scoring call on them takes the 'rhs' mode."""
+    urm = rand(90, 120, density=0.06, seed=31)
+    return urm, random_matrix(120, 80, 0.08, 32)
+
+
+SPLIT = {
+    "high_sym_cosine": _sym(lambda sim, **kw: sim.cosine(
+        rand(45, 500, seed=19, integral=False).T.tocsr(), k=8, **HIGH, **kw), plan=(128, 2)),
+    "high_sym_tversky": _sym(lambda sim, **kw: sim.tversky(
+        rand(45, 500, seed=19, integral=False).T.tocsr(), alpha=0.2, beta=0.9, k=8, **HIGH,
+        **kw), plan=(128, 1)),
+    "high_cosine_explicit": Case(lambda sim, **kw: sim.cosine(
+        M(), M().T.tocsr(), k=30, **HIGH, **kw)),
+    "high_scoring_rhs": Case(lambda sim, **kw: sim.dot_product(
+        _float_pair()[0], _float_pair()[1], k=12, **HIGH, **kw)),
+    "high_scoring_lhs": Case(lambda sim, **kw: sim.dot_product(
+        _float_pair()[1].T.tocsr(), _float_pair()[0].T.tocsr(), k=12, **HIGH, **kw)),
+    "high_recommend_fold": Case(lambda sim, **kw: sim.recommend(
+        ratings()[0], ratings()[1], k=8, **HIGH, **kw)),
+}
+
+CASES.update(SPLIT)
