@@ -62,8 +62,9 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
              f32 build over all items (mode 'both', K2 and K5) and
              recommend(urm, W, k=10) for the 1,024 users on the raw
              ratings (mode 'rhs', the fold on, K1 and K5). Each call took
-             its route, launched its kernels and no plain version (these
-             calls hold the compaction route off). Then
+             its route, launched its kernels and no plain version, and had
+             its output assembled by the native library (`native_calls`;
+             these calls hold the compaction route off). Then
              the checks: recommend and the 1,024-item
              cosines match the same calls through the plain versions (nnz,
              check_sum rtol 1e-4; int8 identical); 64 sampled rows match a
@@ -101,23 +102,25 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
              diagonal block (f32), a live block in bf16 (the f32 build's
              geometry), in split-bf16x3 (the 'high' build's) and in int8, K5
              on one inner tile, K1 on a 1,024-item cosine panel (f32, int8,
-             split 'both') and a recommend panel (f32; split 'rhs' on the
-             raw ratings), K3 on a panel of the
-             largest cold bucket of the 8,192-item cosine (f32 and int8) and
-             K4 on its gather: kernel, bound, plain and library
+             bf16, split 'both') and a recommend panel (f32; split 'rhs' on
+             the raw ratings), K3 on a panel of the
+             largest cold bucket of the 8,192-item cosine (f32, int8 and
+             bf16) and K4 on its gather: kernel, bound, plain and library
              (K2: torch.matmul + epilogue + torch.topk on both sides, bf16
              and split as one cuBLAS bf16 product with an f32 result per
              phase, `library_chain` naming the call; K5:
-             index_put_; K1: torch.matmul or torch._int_mm + torch.topk; K3:
-             the same with the bias and the epilogue; K4: index_select);
+             index_put_; K1: torch.matmul, torch._int_mm or one cuBLAS bf16
+             product with an f32 result + torch.topk; K3: the same with the
+             bias and the epilogue; K4: index_select);
              K2's three launches and a warm repeat of the asymmetric call
              under torch.profiler (device time by kernel, idle share); a line
              of its own (`times_k2_split`) with K2's per-launch split
              (product, row merge, col merge) of each timed block and its
              product kernels' registers, spills, shared memory and blocks
              per SM; and two more such lines, `times_k1_split` (K1_f32,
-             K1_int8, K1_f32_recommend) and `times_k3_split` (K3_f32,
-             K3_int8), with each timed call's product and top-k launch
+             K1_int8, K1_f32_recommend, K1_bf16 and the split modes) and
+             `times_k3_split` (K3_f32, K3_int8, K3_bf16), with each timed
+             call's product and top-k launch
              (device ms), kernel ms and TOP/s, and the registers, spills,
              shared memory and blocks per SM of K1's product kernels
              (tile_product_attrs, no bias) and of K3's (with the bias)
@@ -139,12 +142,28 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
              one product, library torch._int_mm * steps) beside its rate;
              the --quick kernel-check sweep (must pass); K1's
              microbenchmark (micro_tile_kernel, chained and fresh carry)
+  6 bench    the benchmark entry points: the bench's kernel guard
+             (benchmarks.bench.ensure_kernel_stamp runs the quick sweep in a
+             subprocess when the stamp is stale, as on a fresh checkout; the
+             stamp then matches kernel_stamp.kernel_hash()); the headline
+             benchmarks.bench.main(["--rounds", "1"]) in this process on the
+             tracked data (the five-key last line, value = 84,432 / the best
+             round, recall@100 >= 0.99, the symmetric route with the plan's
+             K2 and K5 launches, no plain version, the native assembly, the
+             laps of round 0 and of the diagnostic round); run_benchmarks on synthetic_small in
+             the similarity stage (dot_product, cosine, rp3beta) and the
+             scoring stage (cosine, precision='high'), both reports read by
+             compare_benchmarks, and bench_gate from no earlier report
+             (bootstrap); assemble on the headline's (T, k) buffers, native
+             against plain, in COO and CSR: bit-equal, both times printed
 
 then the `kernels` line (K1 and K2 once more as "tile_topk:split-bf16x3"
 and "sym_topk:split-bf16x3": their launches in the 'high' calls, their
 split times) and, last, {"ok": true, "device": {...}}. Any failed
 check raises and the script exits non-zero; without a card it exits non-zero
-before printing anything. It writes nothing but the kernel build.
+before printing anything. It writes nothing but the kernel and native
+builds, the kernel stamp and the synthetic_small cache (all in
+similaripy_tpu_torch/_build/) and temporary directories.
 """
 
 from __future__ import annotations
@@ -562,12 +581,16 @@ def _check_plan_launches(name, route, launches, plan):
 def _make_call(torch, counters, ex, dev, calls):
     """The main path's call driver: counts set to 0 just before a call and
     read just after; the route taken, its kernels launched (K3 and K4 as
-    often as the compaction plan needs) and no plain version run; the
-    result's wall, launches, nnz, check_sum and plan go into `calls`."""
+    often as the compaction plan needs), no plain version run and the
+    output assembled by the native library (`native_calls`); the result's
+    wall, launches, nnz, check_sum and plan go into `calls`."""
+
+    from similaripy_tpu_torch import native
 
     def call(key, name, fn, route):
         for c in counters.values():
             c.reset_counts()
+        native.reset_counts()
         t = time.perf_counter()
         out = fn()
         _sync(torch, dev)
@@ -576,6 +599,8 @@ def _make_call(torch, counters, ex, dev, calls):
         plain = {k: c.plain_calls for k, c in counters.items()}
         if ex.last_route != route:
             raise AssertionError(f"{name}: took the {ex.last_route} route, not {route}")
+        if native.native_calls == 0:
+            raise AssertionError(f"{name}: the output was not assembled by the native library")
         # a mesh rank launches its plan's share (checked below), which may be none
         used = {"symmetric": ("sym_topk", "scatter"), "general": ("tile_topk", "scatter"),
                 "compact": ("panel_topk", "scatter")}.get(route, ())
@@ -590,6 +615,7 @@ def _make_call(torch, counters, ex, dev, calls):
             if any(launches[k] != v for k, v in expect.items()):
                 raise AssertionError(f"{name}: launches {launches}, expected {expect}")
         calls[key] = {"call": name, "route": route, "seconds": wall, "launches": launches,
+                      "native_calls": native.native_calls,
                       "nnz": int(out.nnz), "check_sum": check_sum(out),
                       "plan": dict(ex.last_plan)}
         return out
@@ -673,7 +699,8 @@ def phase_main(torch, sim, counters, ex, urm, dev):
         pre = preprocess(m1, m2 if m2 is not None else m1.T, k=k, target_rows=targets,
                          filter_cols=filt, self_similar=m2 is None, **prep)
         vals, idx = ex.execute(pre, params, compute_dtype="auto", device=dev, _tile_fn="plain")
-        return assemble(vals, idx, pre.targets, pre.n_output_rows, pre.n_output_cols, "csr")
+        return assemble(vals, idx, pre.targets, pre.n_output_rows, pre.n_output_cols, "csr",
+                        native=False)
 
     # the main path, every count read right after its call: the model build
     # over all items (symmetric route), scoring, the targeted cosine over
@@ -1189,13 +1216,14 @@ def _bound(ops, nbytes, int8, peak=None):
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def _time_k1(torch, tt, panel, tile, plan, int8, split=None):
+def _time_k1(torch, tt, panel, tile, plan, int8, split=None, bf16=False):
     """K1 (kernel, plain, library yardstick) on one panel x tile of the
     main path, as cosine, checked against the plain version; `split`
-    ('both', 'rhs') runs that split-bf16x3 mode on the f32 operands."""
+    ('both', 'rhs') runs that split-bf16x3 mode on the f32 operands, `bf16`
+    the operands rounded to bf16 (compute_dtype='bfloat16')."""
     dev = torch.device("cuda")
     trp, u_pad, tc, k_pad = plan["trp"], plan["u_pad"], plan["tc"], plan["k_pad"]
-    dtype = torch.int8 if int8 else torch.float32
+    dtype = torch.int8 if int8 else torch.bfloat16 if bf16 else torch.float32
 
     def dense(m, shape):
         out = torch.zeros(shape, dtype=torch.float32, device=dev)
@@ -1225,7 +1253,9 @@ def _time_k1(torch, tt, panel, tile, plan, int8, split=None):
         kw["split_f32"] = split
     got = [t.cpu().numpy() for t in tt.fused_tile_topk(*args, **kw)]
     ref = [t.cpu().numpy() for t in tt.fused_tile_topk_plain(*args, **kw)]
-    if split:
+    if split or bf16:
+        # the bf16 product is the split modes' kernel with one phase: the
+        # same full-depth tolerance
         from torch_k1_cases import SPLIT_RTOL_FULL_K, assert_same_split
 
         assert_same_split(got, ref, flags, SPLIT_RTOL_FULL_K)
@@ -1241,7 +1271,7 @@ def _time_k1(torch, tt, panel, tile, plan, int8, split=None):
     if int8:
         def library():
             return torch.topk(torch._int_mm(a, d), k_pad, dim=1)
-    elif split:
+    elif split or bf16:
         def library():
             return torch.topk(_split_library(torch, a, d, split, u_pad), k_pad, dim=1)
     else:
@@ -1253,12 +1283,13 @@ def _time_k1(torch, tt, panel, tile, plan, int8, split=None):
               + 4.0 * (3 * trp + 3 * tc + 16 + 4 * k_pad * trp))
     phases = {None: 1, "both": 3, "rhs": 2, "lhs": 2}[split]
     ops = 2.0 * trp * u_pad * tc * phases  # every phase's products
-    bound_ms, bound_by = _bound(ops, nbytes, int8, PEAK_BF16_FLOPS if split else None)
+    bound_ms, bound_by = _bound(ops, nbytes, int8,
+                                PEAK_BF16_FLOPS if split or bf16 else None)
     return {
         "shape": {"trp": trp, "u_pad": u_pad, "tc": tc, "k_pad": k_pad,
-                  "dtype": f"split-bf16x3 {split}" if split else "int8" if int8 else "float32"},
+                  "dtype": f"split-bf16x3 {split}" if split else str(dtype)[6:]},
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "library_chain": LIBRARY_BF16_MM if split else None,
+        "library_chain": LIBRARY_BF16_MM if split or bf16 else None,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "kernel_tops": ops / kernel_ms / 1e9, "max_abs_err": err, "max_rel_err": rel,
         "profile": launches, "split": _tile_split(launches),
@@ -1442,7 +1473,7 @@ def _time_k5(torch, sc, coo, plan, int8):
     }
 
 
-def _compact_panel(torch, dev, m_items, targets, plan, int8, params, **prep):
+def _compact_panel(torch, dev, m_items, targets, plan, dtype, params, **prep):
     """Panel 0 of the largest cold bucket of a compaction call against the
     call's first column group, staged by the executor's own staging
     (compact.stage_panels, compact.stage_tiles) at the call's plan: the
@@ -1454,7 +1485,7 @@ def _compact_panel(torch, dev, m_items, targets, plan, int8, params, **prep):
     from similaripy_tpu_torch.engine.preprocess import preprocess
 
     pre = preprocess(m_items, m_items.T, k=100, target_rows=targets, self_similar=True, **prep)
-    cd, inv_scale = ex.resolve_compute_dtype("int8" if int8 else "float32", pre)
+    cd, inv_scale = ex.resolve_compute_dtype(dtype, pre)
     H, tc, u_pad, cg = plan["H"], plan["tc"], plan["u_pad"], plan["cg"]
     buckets, rank_of = compact.stage_panels(pre, cd, u_pad=u_pad, device=dev,
                                             densify=scatter.densify_tiles)
@@ -1468,7 +1499,7 @@ def _compact_panel(torch, dev, m_items, targets, plan, int8, params, **prep):
     pv = np.zeros(16, np.float32)
     pv[:10] = build_pvec(params, inv_scale)
     return {
-        "B": b["B"], "H": H, "tc": tc, "cg": cg, "k_pad": plan["k_pad"], "int8": int8,
+        "B": b["B"], "H": H, "tc": tc, "cg": cg, "k_pad": plan["k_pad"], "dtype": dtype,
         "a_hot": b["hot"][0], "a_cold": b["cold"][0], "d_group": d_group, "gi": b["gi"][0],
         "x": [b[n][0] for n in ("sx_t", "sx_c", "sx_d")],
         "y": [yvecs[n][:cg] for n in ("y_t", "y_c", "y_d")],
@@ -1486,13 +1517,15 @@ def _time_k3_k4(torch, pt, ga, op):
     sys.path.insert(0, os.path.join(HERE, "tests"))
     from torch_k3_cases import assert_same_panel
 
-    tm, K, cg, tc, k_pad, int8 = compact.TM, op["B"], op["cg"], op["tc"], op["k_pad"], op["int8"]
-    mode = "int8" if int8 else "f32"
+    tm, K, cg, tc, k_pad = compact.TM, op["B"], op["cg"], op["tc"], op["k_pad"]
+    int8, bf16 = op["dtype"] == "int8", op["dtype"] == "bfloat16"
+    mode = {"int8": "int8", "bfloat16": "bf16", "float32": "f32"}[op["dtype"]]
     d_group, gi = op["d_group"], op["gi"]
     d_cold = ga.row_gather(d_group, gi)
     if not torch.equal(d_cold, ga.row_gather_plain(d_group, gi)):
         raise AssertionError("times K4: rows differ from the plain version")
-    bias = compact._hot_bias(op["a_hot"], d_group[: op["H"]], int8)
+    d_hot = d_group[: op["H"]]
+    bias = compact._hot_bias(op["a_hot"], d_hot.float() if bf16 else d_hot, int8)
     args = (op["a_cold"], d_cold, *op["x"], *op["y"], op["pvec"])
     kw = dict(bias=bias, flags=op["flags"], k_pad=k_pad, tc=tc, int8_mode=int8)
     got = [t.cpu().numpy() for t in pt.fused_panel_topk(*args, **kw)]
@@ -1509,6 +1542,8 @@ def _time_k3_k4(torch, pt, ga, op):
     def library():
         if int8:
             xy = (torch._int_mm(op["a_cold"], d_cold) + bias).float() * pvl[9]
+        elif bf16:
+            xy = _mm_f32(torch, op["a_cold"], d_cold) + bias
         else:
             xy = torch.matmul(op["a_cold"], d_cold) + bias
         val = splus_epilogue(xy, xy != 0, *op["x"], *op["y"], pvl, op["flags"])
@@ -1519,7 +1554,7 @@ def _time_k3_k4(torch, pt, ga, op):
     ops = 2.0 * tm * K * cg
     nbytes = (item * (tm * K + K * cg) + 4.0 * tm * cg + 4.0 * (3 * tm + 3 * cg + 16)
               + 8.0 * (cg // tc) * k_pad * tm)
-    k3_bound, k3_by = _bound(ops, nbytes, int8)
+    k3_bound, k3_by = _bound(ops, nbytes, int8, PEAK_BF16_FLOPS if bf16 else None)
     k4_ms = _time_ms(torch, lambda: ga.row_gather(d_group, gi), 5)
     k4_plain_ms = _time_ms(torch, lambda: ga.row_gather_plain(d_group, gi), 3)
     k4_lib_ms = _time_ms(torch, lambda: torch.index_select(d_group, 0, gi), 5)
@@ -1528,9 +1563,10 @@ def _time_k3_k4(torch, pt, ga, op):
     k4_bytes = (int(torch.unique(gi).numel()) + K) * cg * float(item)
     k4_bound, k4_by = _bound(0.0, k4_bytes, int8)
     shape = {"TM": tm, "K": K, "H": op["H"], "cg": cg, "tc": tc, "k_pad": k_pad,
-             "u_pad": int(d_group.shape[0]), "dtype": "int8" if int8 else "float32"}
+             "u_pad": int(d_group.shape[0]), "dtype": op["dtype"]}
     return (
         {"shape": shape, "kernel_ms": k3_ms, "plain_ms": k3_plain_ms, "library_ms": k3_lib_ms,
+         "library_chain": LIBRARY_BF16_MM if bf16 else None,
          "bound_ms": k3_bound, "bound_by": k3_by, "kernel_tops": ops / k3_ms / 1e9,
          "max_abs_err": err, "profile": k3_profile, "split": _tile_split(k3_profile)},
         {"shape": shape, "kernel_ms": k4_ms, "plain_ms": k4_plain_ms, "library_ms": k4_lib_ms,
@@ -1589,6 +1625,9 @@ def phase_times(torch, sim, tt, st, sc, urm, state):
                               plans["cosine_int8_targeted"], True)
     out["K1_f32_recommend"] = _time_k1(torch, tt, urm_n.tocsr()[state["users"]],
                                        state["W"].T.tocsc(), plans["recommend"], False)
+    # compute_dtype='bfloat16' at the f32 cosine tile's geometry: its rate
+    out["K1_bf16"] = _time_k1(torch, tt, urm_n.T.tocsr()[items], urm_n.tocsc(),
+                              plans["cosine_targeted"], False, bf16=True)
     # precision='high': 'both' on the cosine tile (both sides float), 'rhs'
     # on the 'high' recommend's tile (raw ratings exact in bf16, W float)
     out["K1_split_both"] = _time_k1(torch, tt, urm_n.T.tocsr()[items], urm_n.tocsc(),
@@ -1597,26 +1636,29 @@ def phase_times(torch, sim, tt, st, sc, urm, state):
                                    state["W"].T.tocsc(), plans["recommend_high"], False,
                                    split="rhs")
     dtypes = (torch.float32, torch.bfloat16, torch.int8)
-    _split_line("times_k1_split", out, ("K1_f32", "K1_int8", "K1_f32_recommend",
+    _split_line("times_k1_split", out, ("K1_f32", "K1_int8", "K1_f32_recommend", "K1_bf16",
                                         "K1_split_both", "K1_split_rhs"),
                 {**{str(dt).replace("torch.", ""): tt.product_attrs(dt) for dt in dtypes},
                  **{f"split_{s}": tt.product_attrs(torch.bfloat16, split=s)
                     for s in ("both", "rhs", "lhs")}})
-    # K3 and K4 on the 8,192-item cosine's largest cold bucket, f32 and int8
-    # (the same panel: plan_compact reads only the sparsity structure);
-    # the engine caches are dropped first to make room for a full group
+    # K3 and K4 on the 8,192-item cosine's largest cold bucket, f32, int8 and
+    # bf16 at the f32 call's geometry (the same panel: plan_compact reads
+    # only the sparsity structure); the engine caches are dropped first to
+    # make room for a full group
     from similaripy_tpu_torch.engine import gather as ga
     from similaripy_tpu_torch.engine import panel_topk as pt
 
     sim.clear_caches()
-    for name, m_items, key, int8 in (("f32", urm_n.T.tocsr(), "cosine_t8k_on_1", False),
-                                     ("int8", urm.T.tocsr(), "cosine_int8_t8k_on_1", True)):
-        op = _compact_panel(torch, torch.device("cuda"), m_items, state["t8k"], plans[key], int8,
-                            cos, **cos_prep)
+    for name, m_items, key, dtype in (
+            ("f32", urm_n.T.tocsr(), "cosine_t8k_on_1", "float32"),
+            ("int8", urm.T.tocsr(), "cosine_int8_t8k_on_1", "int8"),
+            ("bf16", urm_n.T.tocsr(), "cosine_t8k_on_1", "bfloat16")):
+        op = _compact_panel(torch, torch.device("cuda"), m_items, state["t8k"], plans[key],
+                            dtype, cos, **cos_prep)
         out[f"K3_{name}"], out[f"K4_{name}"] = _time_k3_k4(torch, pt, ga, op)
         del op
         torch.cuda.empty_cache()
-    _split_line("times_k3_split", out, ("K3_f32", "K3_int8"),
+    _split_line("times_k3_split", out, ("K3_f32", "K3_int8", "K3_bf16"),
                 {str(dt).replace("torch.", ""): tt.product_attrs(dt, bias=True)
                  for dt in dtypes})
     return out
@@ -1834,6 +1876,187 @@ def phase_probes(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the benchmark entry points and the native assembly
+# ---------------------------------------------------------------------------
+
+BENCH_SUITE = (
+    ["--dataset", "synthetic_small", "--similarities", "dot_product", "cosine", "rp3beta",
+     "--rounds", "1"],
+    ["--dataset", "synthetic_small", "--stage", "scoring", "--similarities", "cosine",
+     "--precision", "high", "--rounds", "1"],
+)
+
+
+def _captured(fn, *args):
+    """fn(*args) with its stdout and stderr captured: (result, stdout, stderr).
+    The stderr is echoed to this process's stderr."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = fn(*args)
+    sys.stderr.write(err.getvalue())
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _bench_headline(torch, counters, ex, n_items):
+    """benchmarks.bench.main(["--rounds", "1"]) in this process on the
+    tracked data; its contract line, best round, recall, route, launches
+    and laps checked. Returns (the line's numbers, the last assemble call's
+    arguments)."""
+    import re
+
+    from similaripy_tpu_torch.benchmarks import bench
+    from similaripy_tpu_torch.engine import splus
+
+    captured = {}
+    real = splus.assemble
+
+    def keep(*args, **kwargs):
+        captured["args"], captured["kwargs"] = args, kwargs
+        return real(*args, **kwargs)
+
+    splus.assemble = keep
+    t = time.perf_counter()
+    try:
+        rc, out, err = _captured(bench.main, ["--rounds", "1"])
+    finally:
+        splus.assemble = real
+    seconds = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"bench.main exited {rc}")
+    line = json.loads(out.strip().splitlines()[-1])
+    keys = ["metric", "value", "unit", "vs_baseline", "vs_cpu_measured"]
+    if sorted(line) != sorted(keys) or line["metric"] != "ml32m_item_item_cosine_k100":
+        raise AssertionError(f"bench's last line is not the contract: {line}")
+    times = json.loads(re.search(r"^# timed rounds: (\[.*\]); best", err, re.M).group(1))
+    if line["value"] != round(n_items / min(times), 1):
+        raise AssertionError(f"bench value {line['value']} is not {n_items} / {min(times)}")
+    recall = float(re.search(r"^# recall@100 \(256-row sample\) vs exact oracle: ([0-9.]+)$",
+                             err, re.M).group(1))
+    if recall < 0.99:
+        raise AssertionError(f"bench recall@100 {recall} < 0.99")
+    m = re.search(r"^# device: (.*); route (\w+), K2 launches (\d+), K5 launches (\d+), "
+                  r"plain calls (\d+), native calls (\d+)", err, re.M)
+    card, route = m.group(1), m.group(2)
+    launches = {"sym_topk": int(m.group(3)), "scatter": int(m.group(4))}
+    plain, native_calls = int(m.group(5)), int(m.group(6))
+    if route != "symmetric" or plain != 0 or native_calls == 0:
+        raise AssertionError(f"bench round: route {route}, plain calls {plain}, "
+                             f"native calls {native_calls}")
+    _check_plan_launches("bench", route, launches, ex.last_plan)
+    laps = {}
+    for which in ("round 0", "diagnostic round"):
+        lap = json.loads(re.search(rf"^# {which} laps: (.*)$", err, re.M).group(1))
+        if sorted(lap) != sorted(["validate", "preprocess", "execute (wall)", "assembly"]):
+            raise AssertionError(f"bench {which} laps: {lap}")
+        stages = json.loads(re.search(rf"^# {which} stages: (.*)$", err, re.M).group(1))
+        laps[which] = {**lap, "stages": stages}
+    return {"line": line, "timed_rounds_s": times, "recall_at_100": recall, "card": card,
+            "route": route, "launches": launches, "plain_calls": plain,
+            "native_calls": native_calls, "laps": laps,
+            "plan": {k: ex.last_plan[k] for k in ("tc", "gt", "blocks", "scatters")},
+            "seconds": seconds}, captured
+
+
+def _bench_suite(tmp):
+    """run_benchmarks in both stages into `tmp`, both reports read by
+    compare_benchmarks, and bench_gate from no earlier report (bootstrap)."""
+    from similaripy_tpu_torch.benchmarks import bench_gate, compare_benchmarks, run_benchmarks
+
+    reports = {}
+    for argv in BENCH_SUITE:
+        t = time.perf_counter()
+        rc, out, _ = _captured(run_benchmarks.main, argv + ["--output-dir", tmp])
+        if rc != 0:
+            raise AssertionError(f"run_benchmarks {argv} exited {rc}")
+        path = out.strip().splitlines()[-1].split("report: ", 1)[1]
+        with open(path) as f:
+            rep = json.load(f)
+        stage = rep["stage"]
+        if rep["system"]["backend"] != "cuda" or not rep["results"]:
+            raise AssertionError(f"run_benchmarks {stage}: {rep['system']} {rep['results']}")
+        reports[stage] = {"path": path, "seconds": time.perf_counter() - t, "results": [
+            {k: r[k] for k in ("name", "mean_s", "throughput_items_s", "output_nnz")}
+            for r in rep["results"]]}
+    paths = [r["path"] for r in reports.values()]
+    rc, out, _ = _captured(compare_benchmarks.main, paths + ["--bench-dir", tmp])
+    if rc != 0 or "BENCHMARK COMPARISON" not in out:
+        raise AssertionError(f"compare_benchmarks exited {rc}:\n{out}")
+    t = time.perf_counter()
+    rc, out, _ = _captured(bench_gate.main, ["--dataset", "synthetic_small", "--rounds", "1",
+                                             "--output-dir", os.path.join(tmp, "gate")])
+    if rc != 0 or "PASS (bootstrap)" not in out:
+        raise AssertionError(f"bench_gate exited {rc}:\n{out}")
+    return {"reports": reports, "bench_gate_s": time.perf_counter() - t}
+
+
+def _bench_assembly(captured, reps=3):
+    """assemble on the headline's own (T, k) buffers, native and plain, in
+    the headline's format (COO, the similarities' default) and in CSR: the
+    results bit-equal; each branch's times (s) and native calls."""
+    from similaripy_tpu_torch import native
+    from similaripy_tpu_torch.engine.assembly import assemble
+
+    vals, idx, targets, n_rows, n_cols, _ = captured["args"]
+    out = {"T": int(vals.shape[0]), "k": int(vals.shape[1])}
+    for fmt in ("coo", "csr"):
+        results, row = {}, {}
+        for branch in (True, False):
+            native.reset_counts()
+            times = []
+            for _ in range(reps):
+                t = time.perf_counter()
+                results[branch] = assemble(vals, idx, targets, n_rows, n_cols, fmt,
+                                           native=branch)
+                times.append(time.perf_counter() - t)
+            row["native_s" if branch else "plain_s"] = times
+            if branch:
+                row["native_calls"] = native.native_calls
+        fields = ("indptr", "indices", "data") if fmt == "csr" else ("row", "col", "data")
+        for f in fields:
+            a, b = getattr(results[True], f), getattr(results[False], f)
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"native assembly ({fmt}) differs from the plain "
+                                     f"version in {f}")
+        row["nnz"] = int(results[True].nnz)
+        out[fmt] = row
+    return out
+
+
+def phase_bench(torch, counters, ex, dev):
+    """The benchmark entry points as a user runs them: the bench's kernel
+    guard (the quick kernel-check sweep in a subprocess when the stamp is
+    stale), the headline bench in this process, the suite in both stages
+    with compare_benchmarks and bench_gate, and the native assembly against
+    its plain version on the headline's buffers."""
+    import tempfile
+
+    from similaripy_tpu_torch.benchmarks import bench, kernel_stamp
+
+    import similaripy_tpu_torch as sim
+
+    out = {}
+    sim.clear_caches()  # the sweep's process shares the card
+    torch.cuda.empty_cache()
+    stale = not kernel_stamp.stamp_is_current()
+    t = time.perf_counter()
+    if not bench.ensure_kernel_stamp(dev):
+        raise AssertionError("kernel_check --quick failed through the bench's guard")
+    stamp = kernel_stamp.read_stamp()
+    if stamp["hash"] != kernel_stamp.kernel_hash():
+        raise AssertionError(f"the stamp {stamp} does not match {kernel_stamp.kernel_hash()}")
+    out["guard"] = {"swept": stale, "sweep_s": time.perf_counter() - t, "stamp": stamp}
+
+    out["headline"], captured = _bench_headline(torch, counters, ex, ML32M_SHAPE[1])
+    with tempfile.TemporaryDirectory(prefix="similaripy_bench_") as tmp:
+        out["suite"] = _bench_suite(tmp)
+    out["assembly"] = _bench_assembly(captured)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1903,6 +2126,10 @@ def main() -> int:
     probes = phase_probes(torch, dev)
     emit({"phase": "probes", **probes, "seconds": time.perf_counter() - t0})
 
+    t0 = time.perf_counter()
+    bench_out = phase_bench(torch, counters, ex, dev)
+    emit({"phase": "bench", **bench_out, "seconds": time.perf_counter() - t0})
+
     mesh_calls = mesh["nccl_1"]["calls"] + [
         {"launches": r} for e in mesh["gloo_2"]["ranks"].values() for r in e["launches"]]
     launches = {k: sum(c["launches"][k] for c in main_path["calls"] + mesh_calls)
@@ -1923,6 +2150,7 @@ def main() -> int:
     errs = {
         "tile_topk": max(times["K1_f32"]["max_abs_err"], times["K1_int8"]["max_abs_err"],
                          times["K1_f32_recommend"]["max_abs_err"],
+                         times["K1_bf16"]["max_abs_err"],
                          *parity["K1"]["max_abs_err"].values(),
                          *parity["K1"]["card_max_abs_err"].values()),
         "sym_topk": max(times["K2_f32_live"]["max_abs_err"],
@@ -1932,6 +2160,7 @@ def main() -> int:
                         *parity["K2"]["max_abs_err"].values()),
         "scatter": 0.0,
         "panel_topk": max(times["K3_f32"]["max_abs_err"], times["K3_int8"]["max_abs_err"],
+                          times["K3_bf16"]["max_abs_err"],
                           *parity["K3"]["max_abs_err"].values()),
         "gather": 0.0,
         # P1 is bit-equal on integer data; its f32 errors on normal data

@@ -16,7 +16,8 @@ kernels swapped out). The two must agree per row (``row_values_rel``,
 each variant at its own tolerance, 0 meaning equal), with no repeated
 neighbour in every 97th row; on a card the first run must launch the
 engine's kernels and run none of their plain versions, the second the
-reverse. Exit code 1 on any mismatch.
+reverse. Exit code 1 on any mismatch. A passing sweep on a card writes the
+kernel stamp (``kernel_stamp.write_stamp``) that ``bench.py`` checks.
 
 Where a variant sets a TPU planning knob the port does not have
 (``SIMILARIPY_TPU_SYM_TC`` / ``SIMILARIPY_TPU_SYM_GT``) it runs at the
@@ -184,7 +185,7 @@ def plain_versions():
         splus.execute = real
 
 
-def _engine_counters():
+def engine_counters():
     from ..engine import gather, panel_topk, scatter, sym_topk, tile_topk
 
     return {"tile_topk": tile_topk, "sym_topk": sym_topk, "panel_topk": panel_topk,
@@ -194,7 +195,7 @@ def _engine_counters():
 def _counted(call):
     """`call()` with the engine kernels' counts set to 0 just before and
     read just after: (result, seconds, kernel launches, plain calls)."""
-    counters = _engine_counters()
+    counters = engine_counters()
     for c in counters.values():
         c.reset_counts()
     t0 = time.perf_counter()
@@ -269,6 +270,13 @@ def main(argv=None) -> int:
         print(f"FAILED: {failed}", flush=True)
         return 1
     print("all kernel variants match", flush=True)
+    if dev.type == "cuda":
+        # a passing sweep on a card stamps these kernel sources as checked
+        # (bench.py times no kernel without it); a CPU sweep checks no kernel
+        from .kernel_stamp import write_stamp
+
+        write_stamp("quick" if args.quick else "full", "cuda")
+        print("kernel stamp written", flush=True)
     return 0
 
 

@@ -4,7 +4,8 @@ Drop-in behavioral equivalent of the reference's Cython entry point
 (reference: similaripy/cython_code/s_plus.pyx:95-433): validation, CSR
 coercion + zero elimination, binary mode, normalization-vector precompute,
 column-selector classification, the fused similarity + top-K computation,
-and COO/CSR output assembly.
+and COO/CSR output assembly (on a card by the native C++ kernels of
+``native/``, on the CPU by their NumPy version).
 
 Extensions (keyword-only, defaulted so reference call sites work unchanged):
   compute_dtype : 'auto' (default; picks the exact int8 path for integral
@@ -186,6 +187,7 @@ def s_plus(
         pre.n_output_rows,
         pre.n_output_cols,
         format_output,
+        native=device.type == "cuda",
     )
     lap("assembly")
     progress.close("Done")

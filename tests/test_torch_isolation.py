@@ -24,7 +24,7 @@ SOURCES = sorted(PORT.rglob("*.py")) + [SMOKE]
 
 def _forbidden(module: str) -> bool:
     return any(module == name or module.startswith(name + ".")
-               for name in ("jax", "jaxlib", "similaripy_tpu"))
+               for name in ("jax", "jaxlib", "similaripy_tpu", "benchmarks"))
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=[str(p.relative_to(ROOT)) for p in SOURCES])
@@ -84,6 +84,44 @@ def test_benchmarks_import_with_jax_blocked():
         import similaripy_tpu_torch.benchmarks.probes
         import similaripy_tpu_torch.benchmarks.tlhs_transpose_cost
         assert kc.probe_transposed_lhs("int8", "cpu") == ("ok", True)
+        leaked = [n for n in sys.modules if n == "jax" and sys.modules[n] is not None
+                  or n.startswith(("jax.", "jaxlib", "similaripy_tpu.", "benchmarks."))]
+        assert not leaked, leaked
+        print("isolated ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "isolated ok" in proc.stdout
+
+
+def test_bench_modules_import_with_jax_blocked():
+    """The benchmark entry points, the suite, the kernel stamp, the data
+    helpers and the native assembly import, and the native library builds
+    and runs, where importing jax, similaripy_tpu or the top-level
+    benchmarks fails."""
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["similaripy_tpu"] = None
+        sys.modules["benchmarks"] = None
+        import numpy as np
+        import similaripy_tpu_torch.benchmarks.bench
+        import similaripy_tpu_torch.benchmarks.bench_gate
+        import similaripy_tpu_torch.benchmarks.benchmark
+        import similaripy_tpu_torch.benchmarks.compare_benchmarks
+        import similaripy_tpu_torch.benchmarks.dataset_loaders
+        import similaripy_tpu_torch.benchmarks.kernel_stamp as ks
+        import similaripy_tpu_torch.benchmarks.run_benchmarks
+        import similaripy_tpu_torch.utils.npz_cache
+        from similaripy_tpu_torch import native
+        from similaripy_tpu_torch.utils.synth import synthetic_urm
+        assert synthetic_urm(n_users=50, n_items=20, nnz=100).nnz == 100
+        assert len(ks.kernel_hash()) == 16
+        r, c, v = native.topk_to_coo(np.ones((2, 3), np.float32), np.zeros((2, 3), np.int32),
+                                     np.arange(2, dtype=np.int32))
+        assert v.shape == (6,) and native.native_calls == 1
         leaked = [n for n in sys.modules if n == "jax" and sys.modules[n] is not None
                   or n.startswith(("jax.", "jaxlib", "similaripy_tpu.", "benchmarks."))]
         assert not leaked, leaked
