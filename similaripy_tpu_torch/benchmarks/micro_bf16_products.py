@@ -13,10 +13,13 @@ densities, made on the card; the product kernels' time does not depend on
 the values. Each ROOT (a checkout's root; the default is this one) runs in
 a process of its own that builds its own kernels, in the order A, B, ...,
 B, A, so that every root sees the card alike. Prints one JSON line per
-turn (ms per call and each product kernel's registers, spills, shared
-memory and blocks per SM) and the card's name and power limit. Needs a
-card; exits 1 without one. To compare a change, unpack the other tree with
-``git archive`` into a git-ignored directory and pass both roots.
+turn: per call the ms, the TFLOP/s of its bf16 products (2 x rows x
+columns x depth x phases over the call's ms), the product kernels that
+launched (``product_launches``, where the checkout counts them) and the
+product kernel's registers, spills, shared memory and blocks per SM; then
+the card's name and power limit. Needs a card; exits 1 without one. To
+compare a change, unpack the other tree with ``git archive`` into a
+git-ignored directory and pass both roots.
 """
 
 from __future__ import annotations
@@ -67,6 +70,21 @@ def carry(k_pad, width):
             torch.zeros((k_pad, width), dtype=torch.int32, device=dev))
 
 
+# the product kernels of the module's launches since its counts were set
+# to 0; None where the checkout does not count them
+def products(mod):
+    counts = getattr(mod, "product_launches", None)
+    return {k: n for k, n in counts.items() if n} if counts is not None else None
+
+
+def run(key, mod, fn, flops):
+    mod.reset_counts()
+    fn()
+    out[f"{key}_products"] = products(mod)
+    out[f"{key}_ms"] = time_ms(fn)
+    out[f"{key}_tflops"] = flops / out[f"{key}_ms"] / 1e9
+
+
 flags = (False, True, False, False, False, True)  # cosine
 k, k_pad = 100, 104
 pv = torch.zeros(16, device=dev)
@@ -87,7 +105,8 @@ for mode in ("bf16", "split"):
     args = (a[None], d, ones, ones, ones, ones, ones, ones, crv, cri, crv[k_pad - 1].view(tc, 1),
             ccv, cci, pv2)
     kw = dict(flags=flags, k=k, tc=tc, int8_mode=False, split_f32=split)
-    out[f"K2_{mode}_ms"] = time_ms(lambda: st.fused_sym_topk(*args, **kw))
+    run(f"K2_{mode}", st, lambda: st.fused_sym_topk(*args, **kw),
+        2.0 * tc * tc * u * (3 if split else 1))
     out[f"K2_{mode}_attrs"] = st.product_attrs(torch.bfloat16, split=split)
     del a, d, args
 del items
@@ -103,8 +122,9 @@ for name, trp, u, tc, split in (("K1_bf16", 1024, 200960, 7040, None),
     ones_r, ones_c = torch.ones(trp, device=dev), torch.ones(tc, device=dev)
     kw = dict(carry=carry(k_pad, trp), flags=flags, k_pad=k_pad, int8_mode=False,
               split_f32=split or False)
-    out[f"{name}_ms"] = time_ms(lambda: tt.fused_tile_topk(
-        a, d, ones_r, ones_r, ones_r, ones_c, ones_c, ones_c, pv, **kw))
+    run(name, tt, lambda: tt.fused_tile_topk(
+        a, d, ones_r, ones_r, ones_r, ones_c, ones_c, ones_c, pv, **kw),
+        2.0 * trp * u * tc * {None: 1, "both": 3, "rhs": 2}[split])
     out[f"{name}_attrs"] = tt.product_attrs(torch.bfloat16, split=split)
     del a, d
 print(json.dumps(out))

@@ -60,7 +60,7 @@ def build_control():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.probe_tlhs.argtypes = [i, p, p, i, i, i, p, p]
     lib.probe_tlhs.restype = i
-    lib.sym_product.argtypes = [i, p, p, i, i, i, p, p, i, p, p, p]
+    lib.sym_product.argtypes = [i, p, p, i, i, i, p, p, i, p, p, p, p]
     lib.sym_product.restype = i
     return lib
 
@@ -93,8 +93,9 @@ def _k2_product(lib, a, b, out_r, out_c, pvec, vecs, stream):
     (M x N) and out_c (N x M)."""
     K, M = a.shape
     N = b.shape[1]
+    kind = ctypes.c_int(-1)
     err = lib.sym_product(_P_INT8, a.data_ptr(), b.data_ptr(), M, K, N, vecs, pvec.data_ptr(), 0,
-                          out_r.data_ptr(), out_c.data_ptr(), stream)
+                          out_r.data_ptr(), out_c.data_ptr(), stream, ctypes.byref(kind))
     if err != 0:
         raise RuntimeError(f"K2's product failed to launch: CUDA error {err}")
 

@@ -32,7 +32,10 @@
 // tile) that sorts the tile's survivors. The product streams A and D
 // through a 3-slab cp.async ring: int8 on the tensor cores (mma.sync
 // m16n8k32 s8, 128 x 256 blocks, exact int32 sums with the int32 bias),
-// f32 and bf16 on SIMT FMA (128 x 128 blocks). The TM = 256 rows are two
+// f32 on SIMT FMA (128 x 128 blocks); bf16 runs on the tensor cores by
+// wgmma, its operands brought by TMA (tile_wgmma_kernel with the bias, its
+// rows x columns of the bias added to the f32 total before the epilogue),
+// the narrow-copy shapes by mma.sync. The TM = 256 rows are two
 // row blocks, and the grid runs the two of each column block side by side,
 // so the second reads D from L2 and D streams from device memory once.
 
@@ -45,7 +48,7 @@ int tile_product(int mode, const void* a, const void* d, int M, int K, int N,
                  const void* xt, const void* xc, const void* xd, const void* yt,
                  const void* yc, const void* yd, const void* pvec,
                  const void* allowed, const void* fmask, const void* tmask,
-                 int flags, void* scores, void* stream);
+                 int flags, void* scores, void* stream, int* kind);
 
 // Launch 1: scores (M x N f32) = masked S-Plus epilogue of bias + a (M x K) .
 // d (K x N). mode 0 = f32, 1 = bf16, 2 = int8 (bias int32); bias and the
@@ -54,13 +57,13 @@ int panel_product(int mode, const void* a, const void* d, const void* bias, int 
                   int K, int N, const void* xt, const void* xc, const void* xd,
                   const void* yt, const void* yc, const void* yd, const void* pvec,
                   const void* allowed, const void* fmask, const void* tmask,
-                  int flags, void* scores, void* stream) {
+                  int flags, void* scores, void* stream, int* kind) {
   if (!bias)
     return tile_product(mode, a, d, M, K, N, xt, xc, xd, yt, yc, yd, pvec, allowed, fmask,
-                        tmask, flags, scores, stream);
+                        tmask, flags, scores, stream, kind);
   return (int)product_any<true>(mode, a, d, bias, M, K, N, xt, xc, xd, yt, yc, yd, pvec,
                                 allowed, fmask, tmask, flags, scores,
-                                static_cast<cudaStream_t>(stream));
+                                static_cast<cudaStream_t>(stream), kind);
 }
 
 // K3's product kernel of `mode`, as tile_product_attrs (tile_topk.cu) reports it.

@@ -21,6 +21,10 @@ enum Mode {
   MODE_SPLIT_BOTH = 3, MODE_SPLIT_RHS = 4, MODE_SPLIT_LHS = 5
 };
 
+// the product kernels a launch may take, as the launch wrappers count them
+// (engine/tile_topk.py: PRODUCT_KERNELS)
+enum ProductKernel { PK_SIMT = 0, PK_MMA_S8 = 1, PK_MMA_BF16 = 2, PK_WGMMA_BF16 = 3 };
+
 // epilogue flags, the order of SPlusParams.static_flags()
 enum Flag {
   F_L1 = 1, F_L2 = 2, F_L3 = 4, F_POW = 8, F_BAYES = 16, F_DENOM = 32

@@ -35,10 +35,11 @@
 //   1. the product with the fused epilogue, one output block per thread
 //      block (both operands are (K, tc) row-major: a block's 128 anchor rows
 //      are 128 columns of one anchor tile), skipping row blocks below the
-//      band. Both operands stream through a ring of STAGES = 3 shared-memory
-//      slabs filled by 16-byte cp.async copies (rows past K and columns
-//      past tc zero-filled), two slabs ahead of the one in use, with one
-//      barrier per slab. The epilogue writes the row-side scores (sw x tc)
+//      band. f32 and int8 stream both operands through a ring of STAGES = 3
+//      shared-memory slabs filled by 16-byte cp.async copies (rows past K
+//      and columns past tc zero-filled), two slabs ahead of the one in use,
+//      with one barrier per slab; bf16 through TMA. The epilogue writes the
+//      row-side scores (sw x tc)
 //      and, for rows with rt < t, the col-side scores transposed (tc x sw)
 //      to scratch that the wrapper allocates.
 //        f32        sym_simt_kernel: 128 x 128 blocks, SIMT FMA, 8 x 8
@@ -47,19 +48,29 @@
 //                   in-order fmaf chain over k (no split, no TF32), so the
 //                   scores are those of the plain loop. (The kernel is
 //                   written for bf16 too, which no launch instantiates.)
-//        bf16 and   sym_bf16_kernel: 128 x 128 blocks, mma.sync m16n8k16
-//        split      bf16 -> f32, 8 warps of 64 x 32, 64 K rows a slab, 3
-//                   slabs. Both slabs are (k, 128 columns) rows of 256
-//                   bytes, chunks XOR-swizzled by the row's low 3 bits, and
-//                   ldmatrix .trans reads both the A fragments (anchor rows
-//                   are the anchor tile's columns) and the B fragments; a
-//                   16-bit .trans needs no byte shuffle, unlike int8. The
-//                   split-bf16x3 mode (precision='high' on f32 data;
+//        bf16 and   sym_wgmma_kernel: 128 x 128 blocks, wgmma.mma_async
+//        split      m64n128k16 bf16 -> f32 on operands that TMA brings into
+//                   128-byte-swizzled shared memory, in hopper.cuh's
+//                   warp-specialised block (two consumer warpgroups of 64 x
+//                   128, one producer warp, slabs of 64 K rows in a ring of
+//                   6, or 3 for the split mode), in cluster pairs of two
+//                   column blocks of one row block that share the anchors:
+//                   TMA multicasts each anchor box into both blocks, so the
+//                   pair reads its anchors from L2 once (on an H100 the
+//                   pairs timed faster than unpaired blocks in both
+//                   modes). The block's anchor rows are
+//                   128 columns of one (K, tc) anchor tile and its tile
+//                   columns 128 columns of d, so both operands are MN-major
+//                   and wgmma reads them as they arrive (a 16-bit operand
+//                   may be MN-major, unlike int8's). The anchors are the 4D
+//                   map (tc, K, halves, gt): the anchor tile m0 / tc is a
+//                   coordinate, and so is the half of a [hi; lo] stack, so a
+//                   box past K is zero-filled and never reads the lo half.
+//                   The split-bf16x3 mode (precision='high' on f32 data;
 //                   pallas_kernels.py::split_bf16x3) takes [hi; lo] tiles of
-//                   2K rows, lo at row K: a stage holds the hi and the lo slab
-//                   of both operands for one K range, and each k16 step runs
-//                   hi.hi, lo.hi and hi.lo into the same accumulators from
-//                   fragments read once. A slab's sums go to a zeroed partial
+//                   2K rows: a slab holds the hi and the lo boxes of both
+//                   operands, and each k16 step runs hi.hi, lo.hi and hi.lo
+//                   into one partial that the slab's first wgmma zeroes and
 //                   that joins the f32 total once per slab.
 //        int8       sym_s8_kernel: 128 x 256 blocks, mma.sync m16n8k32 s8
 //                   -> s32 (exact), 8 warps of 64 x 64, 128 K bytes a slab,
@@ -84,10 +95,13 @@
 //      merges them into the running list in shared memory.
 // Shapes: tc a multiple of 128 (the executor's) and 16-byte aligned
 // operands, else the launch returns cudaErrorInvalidValue; any K.
-// Given away for later work: wgmma (an 8-bit operand must be K-major in
-// swizzled shared memory), TMA, and keeping the scores on chip instead of
+// Given away for later work: wgmma for int8 (an 8-bit operand must be
+// K-major in swizzled shared memory, and both of K2's are (k, m) rows), a
+// persistent grid (below-band row blocks are launched and exit at once),
+// TMA for the f32 and int8 rings, and keeping the scores on chip instead of
 // a round trip through device memory.
 
+#include "hopper.cuh"
 #include "splus_epilogue.cuh"
 #include "tensor_core.cuh"
 
@@ -100,9 +114,6 @@ constexpr int THREADS = 256;  // 8 warps
 constexpr int STAGES = 3;     // slabs in the shared-memory ring
 constexpr int FBK = 32;       // f32 / bf16: K rows per slab
 constexpr int IBK = 128;      // int8: K bytes per slab, four k32 steps
-constexpr int TBK = 64;       // bf16 tensor cores: K rows per slab, four k16 steps
-constexpr int T_STAGES = 3;   // bf16 tensor cores: slabs in the ring
-constexpr int T_HALF = TBK * BM * 2;  // bytes of one half (hi or lo) of one operand's slab
 constexpr int MERGE_THREADS = 512;
 constexpr int MAX_CHUNK = 16384;  // candidates sorted at once (128 KB of keys)
 constexpr int MAX_SMEM = 227 * 1024;
@@ -133,15 +144,15 @@ struct Epi {
   float* scores_c;  // (tc, sw)
 };
 
-// The fused epilogue of a thread's 8 x NC cells: anchor rows rows[i] x tile
-// columns cols[j], with products xy(i, j); columns past tc are skipped.
-template <int NC, typename XY>
+// The fused epilogue of a thread's NR x NC cells: anchor rows rows[i] x
+// tile columns cols[j], with products xy(i, j); columns past tc are skipped.
+template <int NR, int NC, typename XY>
 __device__ __forceinline__ void epilogue(const Epi& e, int sw, int tc, int n_live, int n_col,
-                                         const int (&rows)[8], const int (&cols)[NC], XY xy) {
+                                         const int (&rows)[NR], const int (&cols)[NC], XY xy) {
   const float thr = e.pvec[8];
   const bool asym = e.x2t != nullptr;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < NR; ++i) {
     const int r = rows[i];
     if (r >= n_live) continue;
     const float xtr = e.xt[r], xcr = e.xc[r], xdr = e.xd[r];
@@ -280,117 +291,56 @@ __global__ void __launch_bounds__(THREADS, 2) sym_simt_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 and the split-bf16x3 mode: mma.sync m16n8k16 on the tensor cores
+// bf16 and the split-bf16x3 mode: wgmma fed by TMA (hopper.cuh)
 // ---------------------------------------------------------------------------
 
+// One 128 x 128 block: ta is the anchors as the 4D map (tc, K, halves, gt),
+// td the tile as (tc, K, halves); each slab loads two boxes {64, 64, 1...}
+// a half and operand (64 K rows of 64 columns: MN-major). The blocks run in
+// cluster pairs, column blocks 2i and 2i + 1 of one row block (so a pair is
+// below the band, or not, as one), and each brings one of the anchors' two
+// boxes to both: the pair reads its anchors from L2 once. Consumer
+// warpgroup wg owns anchor rows m0 + 64 wg .. + 63, its A strip the box of
+// anchor columns m0 % tc + 64 wg.
 template <int SPLIT>
-constexpr size_t bf16_smem() { return (size_t)T_STAGES * 2 * (SPLIT == SPLIT_BOTH ? 2 : 1) * T_HALF; }
-
-// One 128 x 128 block: 8 warps of 64 x 32 (4 m16 x 4 n8 tiles), 64 f32
-// accumulators and 64 of the slab's partial sums a thread, one block an SM.
-// `K` is the depth of one half: with SPLIT_BOTH every stored tile holds 2K
-// rows, the lo half from row K.
-template <int SPLIT>
-__global__ void __launch_bounds__(THREADS, 1) sym_bf16_kernel(
-    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ d, int sw, int K,
-    int tc, Epi e) {
-  constexpr int HALVES = SPLIT == SPLIT_BOTH ? 2 : 1;
-  constexpr int OPERAND = HALVES * T_HALF;  // one operand's slab, both halves
-  constexpr int COPIES = T_HALF / 16 / THREADS;
-  constexpr int ROW_CHUNKS = BM * 2 / 16;   // 16-byte chunks in a slab row
-  extern __shared__ __align__(16) unsigned char smem[];  // [T_STAGES][A hi, A lo, D hi, D lo]
-
+__global__ void __launch_bounds__(WG_THREADS, 1) sym_wgmma_kernel(
+    const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap td, int sw,
+    int K, int tc, Epi e) {
+  using R = WgmmaRing<SPLIT>;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int n_live = live_rows(e.pvec, sw, tc);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   if (m0 >= n_live) return;  // below the band: the merge passes the carry
   const int n_col = col_rows(e.pvec, sw, tc);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-
-  // the block's anchor rows are columns m0 % tc .. + 128 of anchor tile
-  // m0 / tc (HALVES * K rows of tc); its tile columns n0 .. n0 + 128 of d
-  const __nv_bfloat16* ab = a + (size_t)(m0 / tc) * HALVES * K * tc + m0 % tc;
-  const __nv_bfloat16* db = d + n0;
-  const int n_slabs = (K + TBK - 1) / TBK;
-
-  auto fetch = [&](int s) {
-    if (s < n_slabs) {
-      unsigned char* st = smem + (s % T_STAGES) * 2 * OPERAND;
+  const int tile = m0 / tc, c0 = m0 % tc;
+  wgmma_block<SPLIT, true>(
+      smem, (K + WG_BK - 1) / WG_BK,
+      [&](int s, unsigned char* st, uint64_t* bar, uint32_t rank) {
+        const int k0 = s * WG_BK;
 #pragma unroll
-      for (int h = 0; h < HALVES; ++h) {
+        for (int h = 0; h < R::A_HALVES; ++h) {
+          // the anchors are the pair's: this block brings box `rank` to both
+          tma_load_4d_both(st + h * HALF_BYTES + rank * BOX_BYTES, &ta, bar, c0 + 64 * rank, k0,
+                           h, tile);
 #pragma unroll
-        for (int i = 0; i < COPIES; ++i) {
-          const int c = tid + i * THREADS, row = c / ROW_CHUNKS, ch = c % ROW_CHUNKS;
-          const int k = s * TBK + row;
-          const bool full = k < K;
-          const size_t off = (size_t)(h * K + k) * tc + ch * 8;
-          cp_async16(st + h * T_HALF + kn_swz(row, ch), full ? ab + off : a, full);
-          cp_async16(st + OPERAND + h * T_HALF + kn_swz(row, ch), full ? db + off : d, full);
+          for (int j = 0; j < 2; ++j)
+            tma_load_3d(st + (R::A_HALVES + h) * HALF_BYTES + j * BOX_BYTES, &td, bar,
+                        n0 + 64 * j, k0, h);
         }
-      }
-    }
-    cp_async_commit();  // an empty group past the end keeps the count
-  };
-
-  float acc[4][4][4];
+      },
+      [&](const float (&acc)[64], int wg, int warp, int lane) {
+        // acc[4 j + 2 i + c] is row 8 i + g, column 8 j + 2 tig + c of the
+        // warp's 16 x 128 (hopper.cuh: wgmma_m64n128k16)
+        const int g = lane >> 2, tig = lane & 3;
+        int rows[2], cols[32];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+        for (int i = 0; i < 2; ++i) rows[i] = m0 + 64 * wg + 16 * warp + 8 * i + g;
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < T_STAGES - 1; ++s) fetch(s);
-  for (int s = 0; s < n_slabs; ++s) {
-    cp_async_wait<T_STAGES - 2>();  // slab s is in
-    __syncthreads();                // ... for every thread, and slab s - 1 is done with
-    fetch(s + T_STAGES - 1);        // into slab s - 1's place
-    const unsigned char* sa = smem + (s % T_STAGES) * 2 * OPERAND;
-    const unsigned char* sd = sa + OPERAND;
-    float part[4][4][4];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) part[mi][ni][q] = 0.0f;
-#pragma unroll
-    for (int ks = 0; ks < TBK; ks += 16) {
-      uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        ldsm_a_km(ah[mi], sa, ks, wm + 16 * mi, lane);
-        if constexpr (HALVES == 2) ldsm_a_km(al[mi], sa + T_HALF, ks, wm + 16 * mi, lane);
-      }
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        ldsm_b_pair(bh[2 * nj], bh[2 * nj + 1], sd, ks, wn + 16 * nj, lane);
-        if constexpr (HALVES == 2)
-          ldsm_b_pair(bl[2 * nj], bl[2 * nj + 1], sd + T_HALF, ks, wn + 16 * nj, lane);
-      }
-      mma_split<SPLIT>(part, ah, al, bh, bl);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[mi][ni][q] += part[mi][ni][q];
-  }
-  cp_async_wait<0>();
-
-  // C row g + 8 hh of m-tile mi is anchor row wm + 16 mi + 8 hh + g; C
-  // column 2 tig + jj of n-tile ni is tile column wn + 8 ni + 2 tig + jj
-  int rows[8], cols[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) rows[i] = m0 + wm + 16 * (i >> 1) + 8 * (i & 1) + g;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) cols[j] = n0 + wn + 8 * (j >> 1) + 2 * tig + (j & 1);
-  epilogue(e, sw, tc, n_live, n_col, rows, cols, [&](int i, int j) {
-    return acc[i >> 1][j >> 1][2 * (i & 1) + (j & 1)];
-  });
+        for (int j = 0; j < 32; ++j) cols[j] = n0 + 8 * (j >> 1) + 2 * tig + (j & 1);
+        epilogue(e, sw, tc, n_live, n_col, rows, cols, [&](int i, int j) {
+          return acc[4 * (j >> 1) + 2 * i + (j & 1)];
+        });
+      });
 }
 
 // ---------------------------------------------------------------------------
@@ -652,23 +602,27 @@ cudaError_t launch_product(void (*kern)(P...), size_t smem, int bn, int sw, int 
   return cudaGetLastError();
 }
 
-// registers, local bytes (spills), dynamic shared bytes and resident blocks
-// per SM of one product kernel
-template <typename... P>
-cudaError_t kernel_attrs(void (*kern)(P...), size_t smem, int* out) {
-  cudaFuncAttributes at;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&at, kern);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, THREADS, smem);
-  if (err != cudaSuccess) return err;
-  out[0] = at.numRegs;
-  out[1] = (int)at.localSizeBytes;
-  out[2] = (int)smem;
-  out[3] = blocks;
-  return cudaSuccess;
+// The wgmma launch (sym_wgmma_kernel): the anchors (gt, H K, tc) and the
+// tile (H K, tc) as tensor maps, H = 2 for the split mode; with K = 0 no
+// slab is loaded and the maps stay unset.
+template <int SPLIT>
+cudaError_t launch_wgmma(const void* a, const void* d, int sw, int K, int tc, const Epi& e,
+                         cudaStream_t stream) {
+  CUtensorMap ta{}, td{};
+  if (K > 0) {
+    const cuuint64_t h = SPLIT == SPLIT_BOTH ? 2 : 1, k = K, row = 2 * (cuuint64_t)tc;
+    cudaError_t err = bf16_tensor_map<4>(&ta, a, {(cuuint64_t)tc, k, h, (cuuint64_t)(sw / tc)},
+                                         {row, row * k, row * k * h}, {64, 64, 1, 1});
+    if (err == cudaSuccess)
+      err = bf16_tensor_map<3>(&td, d, {(cuuint64_t)tc, k, h}, {row, row * k}, {64, 64, 1});
+    if (err != cudaSuccess) return err;
+  }
+  Epi ep = e;
+  void* args[] = {&ta, &td, &sw, &K, &tc, &ep};
+  // column blocks in pairs: an odd count's last pair has a block past tc
+  const dim3 grid((tc / BN + 1) / 2 * 2, sw / BM);
+  return launch_pairs(reinterpret_cast<const void*>(sym_wgmma_kernel<SPLIT>), grid, false,
+                      WgmmaRing<SPLIT>::SMEM, stream, args);
 }
 
 template <bool ROW_SIDE>
@@ -698,9 +652,10 @@ extern "C" {
 // six null unless the epilogue is asymmetric. mode 0 = f32, 1 = bf16,
 // 2 = int8, 3 = split 'both' (bf16 [hi; lo] tiles of 2K rows; K is one
 // half's depth). tc must be a multiple of 128 and a and d 16-byte aligned.
+// `kind` receives the product kernel taken (ProductKernel).
 int sym_product(int mode, const void* a, const void* d, int sw, int K, int tc,
                 const void* const* vecs, const void* pvec, int flags,
-                void* scores_r, void* scores_c, void* stream) {
+                void* scores_r, void* scores_c, void* stream, int* kind) {
   if (sw <= 0 || tc <= 0 || K < 0 || sw % tc != 0 || tc % BN != 0 ||
       ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(d)) & 15) != 0)
     return (int)cudaErrorInvalidValue;
@@ -711,18 +666,18 @@ int sym_product(int mode, const void* a, const void* d, int sw, int K, int tc,
               static_cast<float*>(scores_c)};
   switch (mode) {
     case MODE_F32:
+      *kind = PK_SIMT;
       return (int)launch_product(sym_simt_kernel<float>, simt_smem<float>(), BN, sw, tc, s,
                                  static_cast<const float*>(a), static_cast<const float*>(d),
                                  sw, K, tc, e);
     case MODE_BF16:
-      return (int)launch_product(sym_bf16_kernel<SPLIT_NONE>, bf16_smem<SPLIT_NONE>(), BN, sw,
-                                 tc, s, static_cast<const __nv_bfloat16*>(a),
-                                 static_cast<const __nv_bfloat16*>(d), sw, K, tc, e);
+      *kind = PK_WGMMA_BF16;
+      return (int)launch_wgmma<SPLIT_NONE>(a, d, sw, K, tc, e, s);
     case MODE_SPLIT_BOTH:
-      return (int)launch_product(sym_bf16_kernel<SPLIT_BOTH>, bf16_smem<SPLIT_BOTH>(), BN, sw,
-                                 tc, s, static_cast<const __nv_bfloat16*>(a),
-                                 static_cast<const __nv_bfloat16*>(d), sw, K, tc, e);
+      *kind = PK_WGMMA_BF16;
+      return (int)launch_wgmma<SPLIT_BOTH>(a, d, sw, K, tc, e, s);
     case MODE_INT8:
+      *kind = PK_MMA_S8;
       return (int)launch_product(sym_s8_kernel, S8_SMEM, S8_BN, sw, tc, s,
                                  static_cast<const int8_t*>(a), static_cast<const int8_t*>(d),
                                  sw, K, tc, e);
@@ -733,20 +688,38 @@ int sym_product(int mode, const void* a, const void* d, int sw, int K, int tc,
 
 // The product kernel of `mode`: out[0] registers a thread, out[1] local
 // memory bytes a thread (spills), out[2] dynamic shared memory bytes a
-// block, out[3] resident blocks per SM.
+// block, out[3] resident blocks per SM, out[4] the kernel (ProductKernel).
 int sym_product_attrs(int mode, int* out) {
+  const void* kern;
+  size_t smem;
+  int threads = THREADS;
   switch (mode) {
     case MODE_F32:
-      return (int)kernel_attrs(sym_simt_kernel<float>, simt_smem<float>(), out);
+      kern = reinterpret_cast<const void*>(sym_simt_kernel<float>);
+      smem = simt_smem<float>();
+      out[4] = PK_SIMT;
+      break;
     case MODE_BF16:
-      return (int)kernel_attrs(sym_bf16_kernel<SPLIT_NONE>, bf16_smem<SPLIT_NONE>(), out);
+      kern = reinterpret_cast<const void*>(sym_wgmma_kernel<SPLIT_NONE>);
+      smem = WgmmaRing<SPLIT_NONE>::SMEM;
+      threads = WG_THREADS;
+      out[4] = PK_WGMMA_BF16;
+      break;
     case MODE_SPLIT_BOTH:
-      return (int)kernel_attrs(sym_bf16_kernel<SPLIT_BOTH>, bf16_smem<SPLIT_BOTH>(), out);
+      kern = reinterpret_cast<const void*>(sym_wgmma_kernel<SPLIT_BOTH>);
+      smem = WgmmaRing<SPLIT_BOTH>::SMEM;
+      threads = WG_THREADS;
+      out[4] = PK_WGMMA_BF16;
+      break;
     case MODE_INT8:
-      return (int)kernel_attrs(sym_s8_kernel, S8_SMEM, out);
+      kern = reinterpret_cast<const void*>(sym_s8_kernel);
+      smem = S8_SMEM;
+      out[4] = PK_MMA_S8;
+      break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+  return (int)launch_attrs(kern, threads, smem, out);
 }
 
 // Launches 2 and 3: the row-side merge (row_side = 1; carries and outputs

@@ -3,9 +3,10 @@
 // (tile_kernels.cuh): shared-memory addresses, ldmatrix (plain and
 // transposing), mma.sync in bf16 and s8, the in-register 4 x 4 byte
 // transpose that hands int8 (k, m) data to mma.sync as k-contiguous words,
-// 16- and 4-byte cp.async copies with their group waits, and the pieces of
-// the bf16 product that K1 and K2 share: the swizzle of a 128-column bf16
-// slab, its fragment reads, and the phases of the split-bf16x3 modes.
+// 16- and 4-byte cp.async copies with their group waits, the split-bf16x3
+// modes' halves (which the wgmma products of hopper.cuh read), and the
+// pieces of the mma.sync bf16 product of K1's narrow copies: the swizzle of
+// a 128-column bf16 slab and its B fragment reads.
 
 #pragma once
 
@@ -99,7 +100,8 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// the bf16 product of K1, K3 and K2 (one phase) and its split-bf16x3 modes
+// the split-bf16x3 modes, and the mma.sync bf16 product of K1 and K3's
+// narrow copies
 // ---------------------------------------------------------------------------
 
 // Which halves of the [hi; lo] stacks (similaripy_tpu/engine/pallas_kernels.py
@@ -131,38 +133,4 @@ __device__ __forceinline__ void ldsm_b_pair(uint32_t (&b0)[2], uint32_t (&b1)[2]
   b0[1] = r[1];
   b1[0] = r[2];
   b1[1] = r[3];
-}
-
-// m16n8k16 A fragment (.row: a[0] rows g, k 2 tig, 2 tig + 1; a[1] rows
-// g + 8; a[2], a[3] the same at k + 8) of the m-tile at m, k16 step ks, from
-// a (k, m) slab: ldmatrix .trans of (k 0-7 | 8-15) x (m 0-7 | 8-15)
-__device__ __forceinline__ void ldsm_a_km(uint32_t (&a)[4], const unsigned char* s, int ks,
-                                          int m, int lane) {
-  ldmatrix_x4_trans(a, s + kn_swz(ks + (lane & 7) + (lane >> 4) * 8, (m >> 3) + ((lane >> 3) & 1)));
-}
-
-// One k16 step of a warp's MT x NT tiles, every phase of SPLIT into c: the
-// products of bf16 pairs are exact in f32, the hi fragments are reused
-// from registers, and each phase is MT * NT independent mma.sync.
-template <int SPLIT, int MT, int NT>
-__device__ __forceinline__ void mma_split(float (&c)[MT][NT][4], const uint32_t (&ah)[MT][4],
-                                          const uint32_t (&al)[MT][4],
-                                          const uint32_t (&bh)[NT][2],
-                                          const uint32_t (&bl)[NT][2]) {
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni) mma_bf16(c[mi][ni], ah[mi], bh[ni]);
-  if constexpr (split_a_lo<SPLIT>()) {
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni) mma_bf16(c[mi][ni], al[mi], bh[ni]);
-  }
-  if constexpr (split_b_lo<SPLIT>()) {
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni) mma_bf16(c[mi][ni], ah[mi], bl[ni]);
-  }
 }

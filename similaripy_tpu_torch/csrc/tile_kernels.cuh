@@ -24,27 +24,34 @@
 //              transposes them in registers, as K2 does (csrc/sym_topk.cu,
 //              transpose4x4 in tensor_core.cuh); fragment columns then stand
 //              for permuted columns that the epilogue maps back.
-//   bf16 and   tile_bf16_kernel: mma.sync m16n8k16 bf16 -> f32, 128 x 128
-//   the split  blocks of 8 warps with 64 x 32 tiles, 64 K rows a slab, 3
-//   modes      slabs (on an H100, 64 rows in 3 slabs timed 7-17% under 32
-//              rows in 4: half the barriers and partial sums;
-//              benchmarks/micro_bf16_products.py). A's slab rows (128
-//              bytes) are k-contiguous: plain ldmatrix reads its fragments,
-//              chunks XOR-swizzled by the row's low 3 bits. D's (k, n) slab
-//              rows are what ldmatrix .trans
-//              reads as B fragments, chunks XOR-swizzled by the row's low 3
-//              bits. The split-bf16x3 modes (precision='high' on f32 data;
+//   bf16 and   tile_wgmma_kernel (16-byte aligned operands: every launch
+//   the split  of the executors): wgmma.mma_async m64n128k16 bf16 -> f32 on
+//   modes      operands that TMA brings into 128-byte-swizzled shared memory,
+//              in hopper.cuh's warp-specialised 128 x 128 block (two
+//              consumer warpgroups of 64 x 128, one producer warp; slabs of
+//              64 K rows in a ring of 6, 4 or 3 by the halves a slab
+//              holds), the blocks in cluster pairs of two column blocks
+//              that multicast A's boxes, so a pair reads A once. A is K-major (M x K row-major), D is MN-major (K x N
+//              row-major), so wgmma reads both straight from the boxes: no
+//              fragment loads, no register transposes. The split-bf16x3
+//              modes (precision='high' on f32 data;
 //              pallas_kernels.py::split_bf16x3) take [hi; lo] stacks: A
 //              (M x 2K) with the lo half at column K, D (2K x N) with it at
-//              row K. A slab stage holds the hi and the lo slab of the same K
-//              range, each fragment is read once per k16 step, and the step
-//              runs every phase (SPLIT, a template parameter) into the same
-//              accumulators, reusing the hi fragments from registers: one
-//              pass over the operands where the TPU kernel sweeps K once a
-//              phase. Each slab's sums go to a zeroed partial that is added
-//              to the f32 total once per slab (round to nearest), so the
-//              tensor cores' own rounding inside an mma.sync acts on a
-//              slab's partial only, not on the running total.
+//              row K. Each stack is a 3D tensor map with the half as a
+//              dimension of its own ((K, halves, M) and (N, K, halves)), so
+//              a box that runs past K is zero-filled by TMA and never reads
+//              the other half. Every phase of every k16 step (SPLIT, a
+//              template parameter) goes into one partial that the slab's
+//              first wgmma zeroes; once the slab's wgmmas complete, the
+//              partial joins the f32 total with one rounded add, so the
+//              tensor cores' own rounding inside a product acts on a slab's
+//              partial only, not on the running total.
+//              tile_bf16_kernel (mma.sync m16n8k16) stays for plain bf16
+//              with narrow copies (V = 4, 2: ragged
+//              shapes that only tests use), which TMA cannot take: 128 x
+//              128 blocks of 8 warps with 64 x 32 tiles, 64 K rows a slab,
+//              3 slabs, fragments by ldmatrix from XOR-swizzled slabs, the
+//              same per-slab partial.
 //   f32        tile_simt_kernel: 128 x 128 blocks, 8 x 8 SIMT FMA outputs a
 //              thread, slabs of 32 four-byte K units, 3 slabs. The FMA loop
 //              wants 8 rows of A at one k, and A's rows arrive k-contiguous:
@@ -58,8 +65,9 @@
 // Copies are 16 bytes (4 for A's f32 units) when both operands' rows and
 // bases are 16-byte aligned (the main path: u_pad, K and tc are multiples of
 // 128), else 4-byte cp.async when they are 4-byte aligned, else plain
-// element loads and stores (V, a template parameter chosen at launch). The
-// split modes take 16-byte copies only (the executor's shapes).
+// element loads and stores (V, a template parameter chosen at launch). bf16
+// with 16-byte copies takes the wgmma kernel; the split modes take 16-byte
+// copies only (the executor's shapes).
 //
 // Top-k: topk_kernel, one block per (row, tile) of the scores. It keeps the
 // scores above the carry's kth, sorts them in shared memory (bitonic, on
@@ -68,11 +76,18 @@
 // (t+1)*N) of a score row `ld` wide; its ids are pvec[10] + t*N + col, and
 // its output is plane t of (tiles, k_pad, M).
 //
-// Given away, for later work: wgmma and TMA, and keeping the scores on chip
-// instead of a round trip through device memory between the two launches.
+// Given away, for later work: wgmma for int8 (an 8-bit operand must be
+// K-major, and D's slab holds (k, n) bytes), a persistent grid (one block
+// an SM walking the tiles, which would overlap a block's epilogue with the
+// next block's loads and shorten K1's wave tail: 440 blocks on 132 SMs),
+// tiles larger than 128 x 128 for plain bf16, which loads bound (they need
+// more than the 168 registers a thread that 9 warps leave), and keeping
+// the scores on chip instead of a round trip through device memory
+// between the two launches.
 
 #pragma once
 
+#include "hopper.cuh"
 #include "splus_epilogue.cuh"
 #include "tensor_core.cuh"
 
@@ -88,8 +103,8 @@ constexpr int A_LD = BM + 4;  // f32 / bf16: words between A's unit rows
 constexpr int IBK = 128;      // int8: K bytes per slab, four k32 steps
 constexpr int TBK = 64;       // bf16 tensor cores: K rows per slab, four k16 steps
 constexpr int T_STAGES = 3;   // bf16 tensor cores: slabs in the ring
-constexpr int TA_HALF = BM * TBK * 2;  // bytes of one half (hi or lo) of A's slab
-constexpr int TD_HALF = TBK * BN * 2;  // ... and of D's
+constexpr int TA_SLAB = BM * TBK * 2;  // bytes of A's slab
+constexpr int TD_SLAB = TBK * BN * 2;  // ... and of D's
 constexpr int TOPK_THREADS = 256;
 constexpr int MAX_SMEM = 227 * 1024;
 
@@ -315,14 +330,10 @@ __global__ void __launch_bounds__(THREADS, 2) tile_simt_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 and the split-bf16x3 modes: mma.sync m16n8k16 on the tensor cores
+// bf16 with narrow copies: mma.sync m16n8k16 on the tensor cores
 // ---------------------------------------------------------------------------
 
-template <int SPLIT>
-constexpr size_t bf16_smem() {
-  return (size_t)T_STAGES * ((split_a_lo<SPLIT>() ? 2 : 1) * TA_HALF +
-                             (split_b_lo<SPLIT>() ? 2 : 1) * TD_HALF);
-}
+constexpr size_t BF16_SMEM = (size_t)T_STAGES * (TA_SLAB + TD_SLAB);
 
 // Byte offset of 16-byte chunk `ch` (0..7) of row `r` of A's slab (rows of
 // TBK bf16 = 128 bytes): the chunk is XORed with the row's low 3 bits, so
@@ -333,51 +344,39 @@ __device__ __forceinline__ int ak_swz(int r, int ch) {
 
 // One 128 x 128 block: 8 warps of 64 x 32 (4 m16 x 4 n8 tiles), 64 f32
 // accumulators and 64 of the slab's partial sums a thread, one block an SM.
-// `K` is the depth of one half: with a lo half, A's rows are 2K long and
-// D holds 2K rows.
-template <int SPLIT, bool BIAS, int V>
+template <bool BIAS, int V>
 __global__ void __launch_bounds__(THREADS, 1) tile_bf16_kernel(
     const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ d, int M, int K,
     int N, TileEpi<float> e) {
-  constexpr bool A_LO = split_a_lo<SPLIT>(), D_LO = split_b_lo<SPLIT>();
-  constexpr int A_BYTES = (A_LO ? 2 : 1) * TA_HALF;     // A's slab (both halves)
-  constexpr int STAGE = A_BYTES + (D_LO ? 2 : 1) * TD_HALF;
+  constexpr int STAGE = TA_SLAB + TD_SLAB;
   constexpr int A_ROW = TBK * 2 / V, D_ROW = BN * 2 / V;  // copies per slab row
   constexpr int A_COPIES = BM * A_ROW / THREADS, D_COPIES = TBK * D_ROW / THREADS;
-  extern __shared__ __align__(16) unsigned char smem[];  // [T_STAGES][A hi, A lo, D hi, D lo]
+  extern __shared__ __align__(16) unsigned char smem[];  // [T_STAGES][A, D]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tig = lane & 3;
   const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const size_t lda = A_LO ? 2 * (size_t)K : (size_t)K;  // elements between A's rows
-  const size_t d_lo = (size_t)K * N;                    // D's lo half, in elements
   const int n_slabs = (K + TBK - 1) / TBK;
 
   auto fetch = [&](int s) {
     if (s < n_slabs) {
       unsigned char* st = smem + (s % T_STAGES) * STAGE;
 #pragma unroll
-      for (int h = 0; h < (A_LO ? 2 : 1); ++h) {
-#pragma unroll
-        for (int i = 0; i < A_COPIES; ++i) {
-          const int c = tid + i * THREADS, row = c / A_ROW, off = (c % A_ROW) * V;
-          const int k = s * TBK + off / 2;
-          const bool full = m0 + row < M && k < K;
-          copy_v<V>(st + h * TA_HALF + ak_swz(row, off >> 4) + (off & 15),
-                    full ? a + (m0 + row) * lda + h * K + k : a, full);
-        }
+      for (int i = 0; i < A_COPIES; ++i) {
+        const int c = tid + i * THREADS, row = c / A_ROW, off = (c % A_ROW) * V;
+        const int k = s * TBK + off / 2;
+        const bool full = m0 + row < M && k < K;
+        copy_v<V>(st + ak_swz(row, off >> 4) + (off & 15),
+                  full ? a + (size_t)(m0 + row) * K + k : a, full);
       }
 #pragma unroll
-      for (int h = 0; h < (D_LO ? 2 : 1); ++h) {
-#pragma unroll
-        for (int i = 0; i < D_COPIES; ++i) {
-          const int c = tid + i * THREADS, row = c / D_ROW, off = (c % D_ROW) * V;
-          const int k = s * TBK + row, col = n0 + off / 2;
-          const bool full = k < K && col < N;
-          copy_v<V>(st + A_BYTES + h * TD_HALF + kn_swz(row, off >> 4) + (off & 15),
-                    full ? d + h * d_lo + (size_t)k * N + col : d, full);
-        }
+      for (int i = 0; i < D_COPIES; ++i) {
+        const int c = tid + i * THREADS, row = c / D_ROW, off = (c % D_ROW) * V;
+        const int k = s * TBK + row, col = n0 + off / 2;
+        const bool full = k < K && col < N;
+        copy_v<V>(st + TA_SLAB + kn_swz(row, off >> 4) + (off & 15),
+                  full ? d + (size_t)k * N + col : d, full);
       }
     }
     cp_async_commit();  // an empty group past the end keeps the count
@@ -398,7 +397,7 @@ __global__ void __launch_bounds__(THREADS, 1) tile_bf16_kernel(
     __syncthreads();                // ... for every thread, and slab s - 1 is done with
     fetch(s + T_STAGES - 1);        // into slab s - 1's place
     const unsigned char* sa = smem + (s % T_STAGES) * STAGE;
-    const unsigned char* sd = sa + A_BYTES;
+    const unsigned char* sd = sa + TA_SLAB;
     float part[4][4][4];
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi)
@@ -410,19 +409,17 @@ __global__ void __launch_bounds__(THREADS, 1) tile_bf16_kernel(
     for (int ks = 0; ks < TBK; ks += 16) {
       // A: ldmatrix x4 of m-tile mi, matrices (rows 0-7 | 8-15) x (k ks ..
       // +7 | ks + 8 .. +15): lane l gives row l & 15, chunk ks / 8 + l / 16
-      uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
+      uint32_t af[4][4], bf[4][2];
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int off = ak_swz(wm + 16 * mi + (lane & 15), ks / 8 + (lane >> 4));
-        ldmatrix_x4(ah[mi], sa + off);
-        if constexpr (A_LO) ldmatrix_x4(al[mi], sa + TA_HALF + off);
-      }
+      for (int mi = 0; mi < 4; ++mi)
+        ldmatrix_x4(af[mi], sa + ak_swz(wm + 16 * mi + (lane & 15), ks / 8 + (lane >> 4)));
 #pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        ldsm_b_pair(bh[2 * nj], bh[2 * nj + 1], sd, ks, wn + 16 * nj, lane);
-        if constexpr (D_LO) ldsm_b_pair(bl[2 * nj], bl[2 * nj + 1], sd + TD_HALF, ks, wn + 16 * nj, lane);
-      }
-      mma_split<SPLIT>(part, ah, al, bh, bl);
+      for (int nj = 0; nj < 2; ++nj)
+        ldsm_b_pair(bf[2 * nj], bf[2 * nj + 1], sd, ks, wn + 16 * nj, lane);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_bf16(part[mi][ni], af[mi], bf[ni]);
     }
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi)
@@ -443,6 +440,53 @@ __global__ void __launch_bounds__(THREADS, 1) tile_bf16_kernel(
   tile_epilogue<MODE_BF16, BIAS>(e, M, N, rows, cols, [&](int i, int j) {
     return acc[i >> 1][j >> 1][2 * (i & 1) + (j & 1)];
   });
+}
+
+// ---------------------------------------------------------------------------
+// bf16 and the split-bf16x3 modes: wgmma fed by TMA (hopper.cuh)
+// ---------------------------------------------------------------------------
+
+// One 128 x 128 block: ta is A's stack as the 3D map (K, A halves, M), two
+// boxes {64, 1, 64} a half and slab (K-major: 64 rows of 128 bytes each),
+// one brought by each block of the cluster pair (column blocks 2j and 2j +
+// 1 of one row block); td is D's as (N, K, D halves), two boxes {64, 64,
+// 1} a half and slab (MN-major: 64 K rows of 64 columns each). Consumer
+// warpgroup wg owns rows 64 wg .. 64 wg + 63 of the block.
+template <int SPLIT, bool BIAS>
+__global__ void __launch_bounds__(WG_THREADS, 1) tile_wgmma_kernel(
+    const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap td, int M, int K,
+    int N, TileEpi<float> e) {
+  using R = WgmmaRing<SPLIT>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  wgmma_block<SPLIT, false>(
+      smem, (K + WG_BK - 1) / WG_BK,
+      [&](int s, unsigned char* st, uint64_t* bar, uint32_t rank) {
+        const int k0 = s * WG_BK;
+        // A is the pair's: this block brings rows 64 rank .. + 63 to both
+#pragma unroll
+        for (int h = 0; h < R::A_HALVES; ++h)
+          tma_load_3d_both(st + h * HALF_BYTES + rank * BOX_BYTES, &ta, bar, k0, h, m0 + 64 * rank);
+#pragma unroll
+        for (int h = 0; h < R::D_HALVES; ++h)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            tma_load_3d(st + (R::A_HALVES + h) * HALF_BYTES + j * BOX_BYTES, &td, bar,
+                        n0 + 64 * j, k0, h);
+      },
+      [&](const float (&acc)[64], int wg, int warp, int lane) {
+        // acc[4 j + 2 i + c] is row 8 i + g, column 8 j + 2 tig + c of the
+        // warp's 16 x 128 (hopper.cuh: wgmma_m64n128k16)
+        const int g = lane >> 2, tig = lane & 3;
+        int rows[2], cols[32];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) rows[i] = m0 + 64 * wg + 16 * warp + 8 * i + g;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) cols[j] = n0 + 8 * (j >> 1) + 2 * tig + (j & 1);
+        tile_epilogue<MODE_BF16, BIAS>(e, M, N, rows, cols, [&](int i, int j) {
+          return acc[4 * (j >> 1) + 2 * i + (j & 1)];
+        });
+      });
 }
 
 // ---------------------------------------------------------------------------
@@ -600,33 +644,19 @@ void* kernel_for(size_t* smem) {
     *smem = simt_smem<float>();
     return reinterpret_cast<void*>(tile_simt_kernel<MODE_F32, BIAS, V>);
   } else {
-    constexpr int SPLIT = MODE == MODE_SPLIT_BOTH  ? SPLIT_BOTH
-                          : MODE == MODE_SPLIT_RHS ? SPLIT_RHS
-                          : MODE == MODE_SPLIT_LHS ? SPLIT_LHS
-                                                   : SPLIT_NONE;
-    *smem = bf16_smem<SPLIT>();
-    return reinterpret_cast<void*>(tile_bf16_kernel<SPLIT, BIAS, V>);
+    *smem = BF16_SMEM;
+    return reinterpret_cast<void*>(tile_bf16_kernel<BIAS, V>);
   }
 }
 
-// The product kernel for a runtime mode (0 = f32, 1 = bf16, 2 = int8, 3 / 4
-// / 5 = split 'both' / 'rhs' / 'lhs') and copy width, with its dynamic
-// shared memory; null for a pair that no launch takes. The split modes
-// take 16-byte copies and no bias (K3 runs no split mode).
+// The product kernel of a runtime mode (0 = f32, 1 = bf16, 2 = int8) and a
+// copy width below 16 bytes or f32 / int8 at 16, with its dynamic shared
+// memory; null for a pair that no launch takes.
 template <bool BIAS>
 void* select_product(int mode, int v, size_t* smem) {
-  if constexpr (!BIAS) {
-    switch (mode * 32 + v) {
-      case MODE_SPLIT_BOTH * 32 + 16: return kernel_for<MODE_SPLIT_BOTH, false, 16>(smem);
-      case MODE_SPLIT_RHS * 32 + 16: return kernel_for<MODE_SPLIT_RHS, false, 16>(smem);
-      case MODE_SPLIT_LHS * 32 + 16: return kernel_for<MODE_SPLIT_LHS, false, 16>(smem);
-      default: break;
-    }
-  }
   switch (mode * 32 + v) {
     case MODE_F32 * 32 + 16: return kernel_for<MODE_F32, BIAS, 16>(smem);
     case MODE_F32 * 32 + 4: return kernel_for<MODE_F32, BIAS, 4>(smem);
-    case MODE_BF16 * 32 + 16: return kernel_for<MODE_BF16, BIAS, 16>(smem);
     case MODE_BF16 * 32 + 4: return kernel_for<MODE_BF16, BIAS, 4>(smem);
     case MODE_BF16 * 32 + 2: return kernel_for<MODE_BF16, BIAS, 2>(smem);
     case MODE_INT8 * 32 + 16: return kernel_for<MODE_INT8, BIAS, 16>(smem);
@@ -636,18 +666,75 @@ void* select_product(int mode, int v, size_t* smem) {
   }
 }
 
+template <int SPLIT, bool BIAS>
+void* wgmma_kernel(size_t* smem) {
+  *smem = WgmmaRing<SPLIT>::SMEM;
+  return reinterpret_cast<void*>(tile_wgmma_kernel<SPLIT, BIAS>);
+}
+
+// The wgmma kernel of a bf16 or split mode (1, 3 / 4 / 5 = 'both' / 'rhs'
+// / 'lhs'), with its dynamic shared memory; null for a mode it does not
+// take (the split modes run without a bias: K3 has none).
+template <bool BIAS>
+void* select_wgmma(int mode, size_t* smem) {
+  switch (mode) {
+    case MODE_BF16: return wgmma_kernel<SPLIT_NONE, BIAS>(smem);
+    case MODE_SPLIT_BOTH: return BIAS ? nullptr : wgmma_kernel<SPLIT_BOTH, false>(smem);
+    case MODE_SPLIT_RHS: return BIAS ? nullptr : wgmma_kernel<SPLIT_RHS, false>(smem);
+    case MODE_SPLIT_LHS: return BIAS ? nullptr : wgmma_kernel<SPLIT_LHS, false>(smem);
+    default: return nullptr;
+  }
+}
+
+// Which kernel a launch of `mode` with copy width v takes, with its
+// dynamic shared memory and threads a block (ProductKernel in
+// splus_epilogue.cuh); null for a pair that no launch takes: bf16 and the
+// split modes with 16-byte copies take the wgmma kernel, the split modes no
+// other width.
+template <bool BIAS>
+void* product_kernel(int mode, int v, size_t* smem, int* threads, int* kind) {
+  const bool tensor_bf16 = mode == MODE_BF16 || mode >= MODE_SPLIT_BOTH;
+  if (tensor_bf16 && v == 16) {
+    *threads = WG_THREADS;
+    *kind = PK_WGMMA_BF16;
+    return select_wgmma<BIAS>(mode, smem);
+  }
+  if (mode >= MODE_SPLIT_BOTH) return nullptr;
+  *threads = THREADS;
+  *kind = mode == MODE_F32 ? PK_SIMT : mode == MODE_INT8 ? PK_MMA_S8 : PK_MMA_BF16;
+  return select_product<BIAS>(mode, v, smem);
+}
+
+// The wgmma launch's tensor maps (tile_wgmma_kernel) for a bf16 or split
+// mode: A (M x H_A K) and D (H_D K x N) bf16 stacks; with K = 0 no slab is
+// loaded and the maps stay unset.
+inline cudaError_t wgmma_maps(CUtensorMap* ta, CUtensorMap* td, const void* a, const void* d,
+                              int M, int K, int N, int mode) {
+  if (K == 0) return cudaSuccess;
+  const cuuint64_t ha = (mode == MODE_SPLIT_BOTH || mode == MODE_SPLIT_LHS) ? 2 : 1;
+  const cuuint64_t hd = (mode == MODE_SPLIT_BOTH || mode == MODE_SPLIT_RHS) ? 2 : 1;
+  const cuuint64_t k = K, row = 2 * k;  // bytes of one half of an A row
+  cudaError_t err =
+      bf16_tensor_map<3>(ta, a, {k, ha, (cuuint64_t)M}, {row, ha * row}, {64, 1, 64});
+  if (err != cudaSuccess) return err;
+  const cuuint64_t n = N;
+  return bf16_tensor_map<3>(td, d, {n, k, hd}, {2 * n, 2 * n * k}, {64, 64, 1});
+}
+
 // The product launch for a runtime mode; the mask pointers may be null, the
-// bias must be null exactly when !BIAS.
+// bias must be null exactly when !BIAS. `kind` receives the kernel taken
+// (ProductKernel).
 template <bool BIAS>
 cudaError_t product_any(int mode, const void* a, const void* d, const void* bias, int M,
                         int K, int N, const void* xt, const void* xc, const void* xd,
                         const void* yt, const void* yc, const void* yd, const void* pvec,
                         const void* allowed, const void* fmask, const void* tmask, int flags,
-                        void* scores, cudaStream_t s) {
+                        void* scores, cudaStream_t s, int* kind) {
   if (M <= 0 || N <= 0 || K < 0 || (bias != nullptr) != BIAS) return cudaErrorInvalidValue;
   const int esz = mode == MODE_F32 ? 4 : mode == MODE_INT8 ? 1 : 2;
   size_t smem = 0;
-  void* kern = select_product<BIAS>(mode, copy_width(a, d, K, N, esz), &smem);
+  int threads = 0;
+  void* kern = product_kernel<BIAS>(mode, copy_width(a, d, K, N, esz), &smem, &threads, kind);
   if (!kern) return cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -661,38 +748,37 @@ cudaError_t product_any(int mode, const void* a, const void* d, const void* bias
                    f(pvec), u8(allowed), u8(fmask), u8(tmask), flags,
                    static_cast<float*>(scores)};
     void* args[] = {&a, &d, &M, &K, &N, &e};
-    err = cudaLaunchKernel(kern, grid, THREADS, args, smem, s);
+    err = cudaLaunchKernel(kern, grid, threads, args, smem, s);
   } else {
     TileEpi<float> e{f(bias), f(xt), f(xc), f(xd), f(yt), f(yc), f(yd), f(pvec),
                      u8(allowed), u8(fmask), u8(tmask), flags, static_cast<float*>(scores)};
-    void* args[] = {&a, &d, &M, &K, &N, &e};
-    err = cudaLaunchKernel(kern, grid, THREADS, args, smem, s);
+    if (*kind == PK_WGMMA_BF16) {
+      CUtensorMap ta{}, td{};
+      err = wgmma_maps(&ta, &td, a, d, M, K, N, mode);
+      if (err != cudaSuccess) return err;
+      void* args[] = {&ta, &td, &M, &K, &N, &e};
+      // column blocks in pairs: an odd count's last pair has a block past N
+      return launch_pairs(kern, dim3(grid.x, (grid.y + 1) / 2 * 2), true, smem, s, args);
+    } else {
+      void* args[] = {&a, &d, &M, &K, &N, &e};
+      err = cudaLaunchKernel(kern, grid, threads, args, smem, s);
+    }
   }
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// registers, local bytes (spills), dynamic shared bytes and resident blocks
-// per SM of the product kernel of a runtime mode, for 16-byte aligned
-// operands (the main path's)
+// out[0..3]: registers, local bytes (spills), dynamic shared bytes and
+// resident blocks per SM of the product kernel of a runtime mode for
+// 16-byte aligned operands (the main path's), out[4] the kernel
+// (ProductKernel)
 template <bool BIAS>
 cudaError_t product_attrs(int mode, int* out) {
   size_t smem = 0;
-  void* kern = select_product<BIAS>(mode, 16, &smem);
+  int threads = 0;
+  void* kern = product_kernel<BIAS>(mode, 16, &smem, &threads, &out[4]);
   if (!kern) return cudaErrorInvalidValue;
-  cudaFuncAttributes at;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&at, kern);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, THREADS, smem);
-  if (err != cudaSuccess) return err;
-  out[0] = at.numRegs;
-  out[1] = (int)at.localSizeBytes;
-  out[2] = (int)smem;
-  out[3] = blocks;
-  return cudaSuccess;
+  return launch_attrs(kern, threads, smem, out);
 }
 
 // One block per (row, tile): blockIdx.x is the row, blockIdx.y the tile.

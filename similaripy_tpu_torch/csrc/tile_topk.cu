@@ -26,13 +26,14 @@
 // on the tensor cores. The D tile streams from device memory at 3.35 TB/s.
 //
 // Two launches, both in tile_kernels.cuh, shared with K3 (panel_topk.cu):
-//   1. the product with the epilogue and masks fused, its operands fed by a
-//      cp.async ring: int8 on the tensor cores (mma.sync m16n8k32 s8, 128 x
-//      256 blocks), bf16 and the split modes on the tensor cores (mma.sync
-//      m16n8k16 bf16, 128 x 128 blocks, every phase of a split mode from one
-//      read of its operands), f32 on SIMT FMA (128 x 128 blocks, one
-//      in-order fmaf chain per output); the score (or -inf) goes to a
-//      (trp x tc) f32 scratch that the wrapper allocates.
+//   1. the product with the epilogue and masks fused: bf16 and the split
+//      modes on the tensor cores by wgmma, fed by TMA into a warp-specialised
+//      block (tile_wgmma_kernel, 128 x 128 blocks, every phase of a split
+//      mode of a slab into one partial; narrow-copy bf16 by mma.sync m16n8k16,
+//      tile_bf16_kernel); int8 on the tensor cores (mma.sync m16n8k32 s8,
+//      128 x 256 blocks) and f32 on SIMT FMA (128 x 128 blocks, one in-order
+//      fmaf chain per output), both fed by a cp.async ring; the score (or
+//      -inf) goes to a (trp x tc) f32 scratch that the wrapper allocates.
 //   2. topk_kernel: one block per row. It keeps the scores above the carry's
 //      kth, sorts them in shared memory and merges them with the carry.
 //
@@ -45,15 +46,16 @@ extern "C" {
 // Launch 1: scores (M x N f32) = masked S-Plus epilogue of a (M x K) . d (K x N).
 // mode 0 = f32, 1 = bf16, 2 = int8; 3 / 4 / 5 = split 'both' / 'rhs' / 'lhs'
 // (bf16 stacks: a (M x 2K) for 'both' and 'lhs', d (2K x N) for 'both' and
-// 'rhs'; K is one half's depth); the mask pointers may be null.
+// 'rhs'; K is one half's depth); the mask pointers may be null. `kind`
+// receives the product kernel taken (ProductKernel in splus_epilogue.cuh).
 int tile_product(int mode, const void* a, const void* d, int M, int K, int N,
                  const void* xt, const void* xc, const void* xd, const void* yt,
                  const void* yc, const void* yd, const void* pvec,
                  const void* allowed, const void* fmask, const void* tmask,
-                 int flags, void* scores, void* stream) {
+                 int flags, void* scores, void* stream, int* kind) {
   return (int)product_any<false>(mode, a, d, nullptr, M, K, N, xt, xc, xd, yt, yc, yd, pvec,
-                          allowed, fmask, tmask, flags, scores,
-                          static_cast<cudaStream_t>(stream));
+                                 allowed, fmask, tmask, flags, scores,
+                                 static_cast<cudaStream_t>(stream), kind);
 }
 
 // Launch 2: the per-row top-k_pad of the scores, merged with the carry
@@ -66,9 +68,10 @@ int tile_topk_rows(const void* scores, int M, int N, int k_pad, const void* pvec
 
 int panel_product_attrs(int mode, int* out);  // panel_topk.cu: the BIAS kernels
 
-// The product kernel of `mode` (with the bias: K3's): out[0] registers a
-// thread, out[1] local memory bytes a thread (spills), out[2] shared memory
-// bytes a block, out[3] resident blocks per SM.
+// The product kernel of `mode` (with the bias: K3's) for 16-byte aligned
+// operands: out[0] registers a thread, out[1] local memory bytes a thread
+// (spills), out[2] shared memory bytes a block, out[3] resident blocks per
+// SM, out[4] the kernel (ProductKernel).
 int tile_product_attrs(int mode, int bias, int* out) {
   if (bias) return panel_product_attrs(mode, out);
   return (int)product_attrs<false>(mode, out);

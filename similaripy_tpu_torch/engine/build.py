@@ -3,11 +3,15 @@
 Every ``csrc/*.cu`` (K1 ``tile_topk.cu``, K2 ``sym_topk.cu``, K3
 ``panel_topk.cu``, K4 ``gather.cu``, K5 ``scatter.cu``, and the hardware
 probes P1 ``probe_tlhs.cu`` and P2 ``probe_int_mma.cu``, with the shared
-``csrc/*.cuh`` headers) is compiled by
+``csrc/*.cuh`` headers, ``hopper.cuh``'s wgmma and TMA primitives among
+them) is compiled by
 ``nvcc`` into one shared library with a plain C interface, loaded with
 ``ctypes``. No PyTorch header takes part, so a build takes seconds, not
 minutes; the sources compile in parallel, one ``nvcc`` each, and are then
-linked. The library goes into ``similaripy_tpu_torch/_build/`` (git-ignored)
+linked. The bf16 products' tensor maps are encoded by the driver's
+``cuTensorMapEncodeTiled``, reached through the CUDA runtime's driver
+entry point, so the library links nothing beyond the runtime. The library
+goes into ``similaripy_tpu_torch/_build/`` (git-ignored)
 under a name keyed by a hash of the sources, the headers and the flags, so
 an edited source is rebuilt and a stale library is never loaded. It is
 built at first use, never at import.
@@ -95,13 +99,13 @@ def load() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tile_product.argtypes = [i, p, p, i, i, i, p, p, p, p, p, p, p, p, p, p, i, p, p]
+        lib.tile_product.argtypes = [i, p, p, i, i, i, p, p, p, p, p, p, p, p, p, p, i, p, p, p]
         lib.tile_product.restype = i
         lib.tile_product_attrs.argtypes = [i, i, p]
         lib.tile_product_attrs.restype = i
         lib.tile_topk_rows.argtypes = [p, i, i, i, p, p, p, p, p, p]
         lib.tile_topk_rows.restype = i
-        lib.sym_product.argtypes = [i, p, p, i, i, i, p, p, i, p, p, p]
+        lib.sym_product.argtypes = [i, p, p, i, i, i, p, p, i, p, p, p, p]
         lib.sym_product.restype = i
         lib.sym_product_attrs.argtypes = [i, p]
         lib.sym_product_attrs.restype = i
@@ -109,7 +113,7 @@ def load() -> ctypes.CDLL:
         lib.sym_merge.restype = i
         lib.densify_tiles.argtypes = [i, p, p, p, i, i, i, i, p, p]
         lib.densify_tiles.restype = i
-        lib.panel_product.argtypes = [i, p, p, p, i, i, i, p, p, p, p, p, p, p, p, p, p, i, p, p]
+        lib.panel_product.argtypes = [i, p, p, p, i, i, i, p, p, p, p, p, p, p, p, p, p, i, p, p, p]
         lib.panel_product.restype = i
         lib.panel_topk_rows.argtypes = [p, i, i, i, i, p, p, p, p]
         lib.panel_topk_rows.restype = i

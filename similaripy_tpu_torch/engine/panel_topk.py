@@ -19,25 +19,31 @@ top-k) or raises; on CPU tensors it runs ``fused_panel_topk_plain``, the
 same function in plain PyTorch. Ids of -inf slots are arbitrary, as in the
 reference; the executor drops those slots.
 
-``kernel_launches`` and ``plain_calls`` count the two routes (one per call).
+``kernel_launches`` and ``plain_calls`` count the two routes (one per call);
+``product_launches`` the product kernel each launch took, by name
+(``tile_topk.PRODUCT_KERNELS``).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .params import PVEC_COL_BASE, PVEC_LEN
-from .tile_topk import _FLAG_BITS, _MODES, MAX_KERNEL_K_PAD, _check
-from .tile_topk import select_topk_plain, tile_scores_plain
+from .tile_topk import _FLAG_BITS, _MODES, MAX_KERNEL_K_PAD, PRODUCT_KERNELS, _check
+from .tile_topk import count_product, select_topk_plain, tile_scores_plain
 
 kernel_launches = 0
 plain_calls = 0
+product_launches = dict.fromkeys(PRODUCT_KERNELS, 0)
 
 
 def reset_counts() -> None:
     global kernel_launches, plain_calls
     kernel_launches = 0
     plain_calls = 0
+    product_launches.update(dict.fromkeys(PRODUCT_KERNELS, 0))
 
 
 def fused_panel_topk_plain(a, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext, bias=None,
@@ -137,6 +143,7 @@ def _launch(a, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext, bias, allowed, fmask, 
     vals = torch.empty((n_tiles, k_pad, tm), dtype=f32, device=dev)
     idx = torch.empty((n_tiles, k_pad, tm), dtype=torch.int32, device=dev)
     flag_bits = sum(b for b, on in zip(_FLAG_BITS, flags) if on)
+    kind = ctypes.c_int(-1)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -146,7 +153,7 @@ def _launch(a, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext, bias, allowed, fmask, 
             _MODES[dtype], ptr(a), ptr(d), ptr(bias), tm, K, cg,
             ptr(x_t), ptr(x_c), ptr(x_d), ptr(y_t), ptr(y_c), ptr(y_d),
             ptr(pvec_ext), ptr(allowed), ptr(fmask), ptr(tmask), flag_bits,
-            ptr(scores), stream,
+            ptr(scores), stream, ctypes.byref(kind),
         )
         if err == 0:
             err = lib.panel_topk_rows(
@@ -155,4 +162,5 @@ def _launch(a, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext, bias, allowed, fmask, 
             )
     check(err, f"panel_topk (TM={tm}, K={K}, cg={cg}, tc={tc}, k_pad={k_pad}, {dtype})")
     kernel_launches += 1
+    count_product(product_launches, kind)
     return vals, idx

@@ -18,8 +18,9 @@ sw = gt * tc item rows, starting at tile a0, meets inner tile t:
 ``(sw, u_pad)`` or ``(gt, u_pad, tc)``, returns ``rvals, ridx (k_pad_r,
 sw)`` and ``cvals, cidx (k_pad_c, tc)``; ``pvec_ext`` holds [10] col_base,
 [11] row_base, [12] t, [13] a0. On CUDA tensors it launches the kernels of
-``csrc/sym_topk.cu`` (the product with the fused epilogue: int8 and bf16
-by ``mma.sync`` on the tensor cores, f32 by SIMT FMA, all fed by a ring of
+``csrc/sym_topk.cu`` (the product with the fused epilogue: bf16 and the
+split mode by ``wgmma`` on operands that TMA brings, int8 by ``mma.sync``
+on the tensor cores and f32 by SIMT FMA, both fed by a ring of
 ``cp.async`` copies; then the row-side and the col-side merge) or raises;
 on CPU tensors it runs ``fused_sym_topk_plain``, the same function in plain
 PyTorch. The kernels take tc a multiple of 128 (the executor's tiles) and
@@ -31,7 +32,9 @@ the user axis (``tile_topk.split_bf16x3``), and the product sums hi.hi +
 lo.hi + hi.lo in f32 (a self-similarity's two sides are the same float
 matrix, so the one-sided modes never apply).
 
-``kernel_launches`` and ``plain_calls`` count the two routes (one per call).
+``kernel_launches`` and ``plain_calls`` count the two routes (one per call);
+``product_launches`` the product kernel each launch took, by name
+(``tile_topk.PRODUCT_KERNELS``).
 """
 
 from __future__ import annotations
@@ -41,8 +44,9 @@ import ctypes
 import torch
 
 from .params import PVEC_LEN
-from .tile_topk import _FLAG_BITS, _MODES, SPLIT_MODES, _check, _split_product_plain
-from .tile_topk import full_f32_matmul, splus_epilogue
+from .tile_topk import _FLAG_BITS, _MODES, PRODUCT_KERNELS, SPLIT_MODES, _check
+from .tile_topk import _split_product_plain, attrs_dict, count_product, full_f32_matmul
+from .tile_topk import splus_epilogue
 
 NEG_INF = float("-inf")
 
@@ -57,6 +61,7 @@ MAX_KERNEL_K_PAD = 1024
 
 kernel_launches = 0
 plain_calls = 0
+product_launches = dict.fromkeys(PRODUCT_KERNELS, 0)
 
 # int8 products run in float64 on the plain path (exact below 2**53), over
 # slabs of the user axis so that the f64 copies stay small
@@ -67,6 +72,7 @@ def reset_counts() -> None:
     global kernel_launches, plain_calls
     kernel_launches = 0
     plain_calls = 0
+    product_launches.update(dict.fromkeys(PRODUCT_KERNELS, 0))
 
 
 def sym_k_pads(k: int, tc: int, sw: int) -> tuple[int, int]:
@@ -294,10 +300,12 @@ def _launch(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
     flag_bits = sum(b for b, on in zip(_FLAG_BITS, flags) if on)
     what = (f"fused_sym_topk (sw={sw}, u_pad={u_pad}, tc={tc}, k_pad={k_pad_r}, {dtype}, "
             f"split={split})")
+    kind = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         check(lib.sym_product(mode, a.data_ptr(), d.data_ptr(), sw, u_pad, tc,
                               vec_array, pvec_ext.data_ptr(), flag_bits,
-                              scores_r.data_ptr(), scores_c.data_ptr(), stream), what)
+                              scores_r.data_ptr(), scores_c.data_ptr(), stream,
+                              ctypes.byref(kind)), what)
         check(lib.sym_merge(1, scores_r.data_ptr(), sw, tc, k_pad_r, pvec_ext.data_ptr(),
                             rkth.data_ptr(), crv.data_ptr(), cri.data_ptr(),
                             rvals.data_ptr(), ridx.data_ptr(), stream), what)
@@ -305,17 +313,18 @@ def _launch(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
                             None, ccv.data_ptr(), cci.data_ptr(),
                             cvals.data_ptr(), cidx.data_ptr(), stream), what)
     kernel_launches += 1
+    count_product(product_launches, kind)
     return rvals, ridx, cvals, cidx
 
 
 def product_attrs(dtype, split: bool = False) -> dict:
     """Registers and local (spill) bytes a thread, dynamic shared memory a
-    block and resident blocks per SM of the product kernel that `dtype`
-    (float32, bfloat16 or int8) runs, or with `split` the split-bf16x3
-    one; needs a card."""
+    block, resident blocks per SM and the name of the product kernel that
+    `dtype` (float32, bfloat16 or int8) runs, or with `split` the
+    split-bf16x3 one; needs a card."""
     from .build import check, load
 
     mode = SPLIT_MODES["both"] if split else _MODES[dtype]
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     check(load().sym_product_attrs(mode, out), f"sym_product_attrs({dtype}, split={split})")
-    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), out))
+    return attrs_dict(out)

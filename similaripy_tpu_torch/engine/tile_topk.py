@@ -28,7 +28,11 @@ entries before carry entries; with a carry, only tile values strictly above
 the carry's kth enter (pallas_kernels.py:323-374). Ids of -inf slots are
 arbitrary, as in the reference; the executor drops those slots.
 
-``kernel_launches`` and ``plain_calls`` count the two routes (one per call).
+``kernel_launches`` and ``plain_calls`` count the two routes (one per call);
+``product_launches`` counts the product kernel each launch took, by name
+(``PRODUCT_KERNELS``): bf16 and the split modes take ``wgmma bf16`` for
+16-byte aligned operands (every executor launch), plain bf16 with narrower
+rows ``mma.sync bf16``.
 """
 
 from __future__ import annotations
@@ -48,6 +52,10 @@ MAX_KERNEL_K_PAD = 1024
 
 kernel_launches = 0
 plain_calls = 0
+# the product kernels a launch may take, in the order of ProductKernel
+# (csrc/splus_epilogue.cuh)
+PRODUCT_KERNELS = ("simt", "mma.sync s8", "mma.sync bf16", "wgmma bf16")
+product_launches = dict.fromkeys(PRODUCT_KERNELS, 0)
 
 _MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # the kernel's split-bf16x3 modes (Mode in csrc/splus_epilogue.cuh)
@@ -63,6 +71,13 @@ def reset_counts() -> None:
     global kernel_launches, plain_calls
     kernel_launches = 0
     plain_calls = 0
+    product_launches.update(dict.fromkeys(PRODUCT_KERNELS, 0))
+
+
+def count_product(counts: dict, kind) -> None:
+    """One launch of the product kernel that `kind` (a ctypes int the
+    launch filled, ProductKernel) names, into `counts`."""
+    counts[PRODUCT_KERNELS[kind.value]] += 1
 
 
 def splus_epilogue(xy, candidate, x_t, x_c, x_d, y_t, y_c, y_d, pvec, flags):
@@ -345,6 +360,8 @@ def _launch(m1_dense, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext, allowed,
     idx = torch.empty((k_pad, trp), dtype=torch.int32, device=dev)
     flag_bits = sum(b for b, on in zip(_FLAG_BITS, flags) if on)
 
+    kind = ctypes.c_int(-1)
+
     def ptr(t):
         return None if t is None else t.data_ptr()
 
@@ -353,7 +370,7 @@ def _launch(m1_dense, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext, allowed,
             mode, ptr(m1_dense), ptr(d), trp, u_pad, tc,
             ptr(x_t), ptr(x_c), ptr(x_d), ptr(y_t), ptr(y_c), ptr(y_d),
             ptr(pvec_ext), ptr(allowed), ptr(fmask), ptr(tmask), flag_bits,
-            ptr(scores), stream,
+            ptr(scores), stream, ctypes.byref(kind),
         )
         if err == 0:
             cv, ci = carry if carry is not None else (None, None)
@@ -367,19 +384,27 @@ def _launch(m1_dense, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext, allowed,
             f"(trp={trp}, u_pad={u_pad}, tc={tc}, k_pad={k_pad}, dtype={dtype}, split={split})"
         )
     kernel_launches += 1
+    count_product(product_launches, kind)
     return vals, idx
 
 
+def attrs_dict(out) -> dict:
+    """A product kernel's attributes as the C side fills them: four counts
+    and the kernel (ProductKernel), by name."""
+    keys = ("registers", "local_bytes", "smem_bytes", "blocks_per_sm")
+    return {**dict(zip(keys, out[:4])), "kernel": PRODUCT_KERNELS[out[4]]}
+
+
 def product_attrs(dtype, bias: bool = False, split=None) -> dict:
-    """Registers and local (spill) bytes a thread, shared memory a block and
-    resident blocks per SM of the product kernel that `dtype` (float32,
-    bfloat16 or int8) runs for 16-byte aligned operands; `bias` asks for
-    K3's kernel with the hot-prefix bias, `split` ('both', 'rhs', 'lhs')
-    for a split-bf16x3 mode. Needs a card."""
+    """Registers and local (spill) bytes a thread, shared memory a block,
+    resident blocks per SM and the name of the product kernel that `dtype`
+    (float32, bfloat16 or int8) runs for 16-byte aligned operands; `bias`
+    asks for K3's kernel with the hot-prefix bias, `split` ('both', 'rhs',
+    'lhs') for a split-bf16x3 mode. Needs a card."""
     from .build import check, load
 
     mode = SPLIT_MODES[split] if split else _MODES[dtype]
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     check(load().tile_product_attrs(mode, int(bias), out),
           f"tile_product_attrs({dtype}, bias={bias}, split={split})")
-    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), out))
+    return attrs_dict(out)

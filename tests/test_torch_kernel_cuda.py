@@ -15,9 +15,12 @@ import torch
 from similaripy_tpu_torch.benchmarks import probes
 from similaripy_tpu_torch.engine import gather, panel_topk, scatter, sym_topk, tile_topk
 from torch_k1_cases import CARD_CASES as K1_CARD_CASES
-from torch_k1_cases import CASES, SPLIT_CARD_CASES, SPLIT_CASES, assert_same, make_case
+from torch_k1_cases import CASES, MASKS, MODES, SPLIT_CARD_CASES, SPLIT_CASES, assert_same
+from torch_k1_cases import make_case
 from torch_k1_cases import assert_same_split, make_split_case, run_port, run_port_split
-from torch_k1_cases import split_card_ok
+from torch_k1_cases import CARD_SHAPES as K1_CARD_SHAPES
+from torch_k1_cases import SHAPES as K1_SHAPES
+from torch_k1_cases import product_kernel, split_card_ok
 from torch_k2_cases import CARD_CASES as K2_CARD_CASES
 from torch_k2_cases import CASES as K2_CASES
 from torch_k2_cases import SPLIT_CARD_CASES as K2_SPLIT_CARD_CASES
@@ -25,6 +28,10 @@ from torch_k2_cases import SPLIT_CASES as K2_SPLIT_CASES
 from torch_k2_cases import EPILOGUES, case_id, make_inputs, torch_fn
 from torch_k2_cases import assert_same as assert_same_k2
 from torch_k3_cases import CARD_CASES as K3_CARD_CASES
+from torch_k3_cases import CARD_SHAPES as K3_CARD_SHAPES
+from torch_k3_cases import MASKS as K3_MASKS
+from torch_k3_cases import MODES as K3_MODES
+from torch_k3_cases import SHAPES as K3_SHAPES
 from torch_k3_cases import CASES as K3_CASES
 from torch_k3_cases import GATHER_CASES, assert_same_panel, gather_inputs
 from torch_k3_cases import case_id as k3_id
@@ -53,6 +60,8 @@ def test_kernel_matches_plain(mode, carry_on, mask):
     tile_topk.reset_counts()
     got = run_port(tile_topk.fused_tile_topk, mode, *case, device="cuda")
     assert tile_topk.kernel_launches == 1
+    _, u, tc, _ = K1_SHAPES[(MODES.index(mode) + MASKS.index(mask) + carry_on) % len(K1_SHAPES)]
+    assert tile_topk.product_launches[product_kernel(mode, u, tc)] == 1
     ref = _plain_on_card(mode, *case)
     assert_same(mode, got, ref, case[6])
 
@@ -69,6 +78,8 @@ def test_kernel_matches_plain_card_shapes(mode, carry_on, mask, label):
     tile_topk.reset_counts()
     got = run_port(tile_topk.fused_tile_topk, mode, *case, device="cuda")
     assert tile_topk.kernel_launches == 1 and tile_topk.plain_calls == 0
+    _, u, tc, _ = dict(K1_CARD_SHAPES)[label]
+    assert tile_topk.product_launches[product_kernel(mode, u, tc)] == 1
     ref = _plain_on_card(mode, *case)
     assert_same(mode, got, ref, case[6])
 
@@ -85,14 +96,15 @@ K1_SPLIT_ALL = [c + (None,) for c in SPLIT_CASES if split_card_ok(*c)] + SPLIT_C
 @pytest.mark.parametrize("split,carry_on,mask,label", K1_SPLIT_ALL,
                          ids=["-".join(map(str, c)) for c in K1_SPLIT_ALL])
 def test_split_kernel_matches_plain(split, carry_on, mask, label):
-    """K1's split-bf16x3 modes (tile_bf16_kernel with 3 or 2 phases) on the
-    CPU parity shapes that fit its 16-byte copies and at the edges of the
-    ring and blocks."""
+    """K1's split-bf16x3 modes (tile_wgmma_kernel with 3 or 2 phases) on
+    the CPU parity shapes that fit TMA's 16-byte rows and at the edges of
+    the ring and blocks."""
     _need_card()
     case = make_split_case(split, carry_on, mask, _split_plain_on_card, label)
     tile_topk.reset_counts()
     got = run_port_split(tile_topk.fused_tile_topk, split, *case, device="cuda")
     assert tile_topk.kernel_launches == 1 and tile_topk.plain_calls == 0
+    assert tile_topk.product_launches["wgmma bf16"] == 1
     assert_same_split(got, _split_plain_on_card(split, *case), case[6])
 
 
@@ -109,6 +121,8 @@ def test_sym_kernel_matches_plain(case):
     got = torch_fn(sym_topk.fused_sym_topk, case["mode"], device="cuda")(*args, **kw)
     torch.cuda.synchronize()
     assert sym_topk.kernel_launches == 1 and sym_topk.plain_calls == 0
+    kernel = {"f32": "simt", "int8": "mma.sync s8"}.get(case["mode"], "wgmma bf16")
+    assert sym_topk.product_launches[kernel] == 1
     assert_same_k2(case["mode"], got, plain(*args, **kw), EPILOGUES[case["epi"]][0])
 
 
@@ -156,6 +170,10 @@ def test_panel_kernel_matches_plain(case):
     got = run_k3(panel_topk.fused_panel_topk, mode, *inputs, device="cuda")
     torch.cuda.synchronize()
     assert panel_topk.kernel_launches == 1 and panel_topk.plain_calls == 0
+    K, tc, n_tiles, _ = (K3_CARD_SHAPES[card_shape] if card_shape is not None else
+                         K3_SHAPES[(K3_MODES.index(mode) + K3_MASKS.index(mask) + bias_on)
+                                   % len(K3_SHAPES)])
+    assert panel_topk.product_launches[product_kernel(mode, K, tc * n_tiles)] == 1
     ref = run_k3(panel_topk.fused_panel_topk_plain, mode, *inputs, device="cuda")
     assert_same_panel(mode, got, ref, inputs[6])
 

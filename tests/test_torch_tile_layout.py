@@ -26,7 +26,9 @@ from torch_k3_cases import TM
 BM, BN, S8_BN, THREADS, STAGES = 128, 128, 256, 256, 3
 UNITS, A_LD, IBK = 32, BM + 4, 128
 ESZ = {"f32": 4, "bf16": 2, "int8": 1}
-# the (mode, copy width) pairs that select_product instantiates
+# the (mode, copy width) pairs that product_kernel takes: bf16 at 16 bytes
+# the wgmma kernel (tests/test_torch_wgmma_layout.py), the others the
+# kernels modelled here
 VARIANTS = {("f32", 16), ("f32", 4), ("bf16", 16), ("bf16", 4), ("bf16", 2),
             ("int8", 16), ("int8", 4), ("int8", 1)}
 
@@ -333,14 +335,12 @@ def test_card_cases_take_every_copy_width_and_the_main_path_16_bytes():
 
 
 # ---------------------------------------------------------------------------
-# bf16 and the split-bf16x3 modes: tile_bf16_kernel (K1, K3) and
-# sym_bf16_kernel (K2), mma.sync m16n8k16 through ldmatrix
+# bf16 with narrow copies: tile_bf16_kernel (K1, K3), mma.sync m16n8k16
+# through ldmatrix (16-byte copies and the split modes take the wgmma
+# kernel, tests/test_torch_wgmma_layout.py)
 # ---------------------------------------------------------------------------
 
 TBK, T_STAGES = 64, 3
-# the split modes: (A has a lo half, D has a lo half), the phases in order
-SPLITS = {"none": (False, False), "both": (True, True), "rhs": (False, True),
-          "lhs": (True, False)}
 
 
 def ak_swz(r, ch):
@@ -387,85 +387,63 @@ def mma16816(af, bf):
     return np.stack([C[g, 2 * t], C[g, 2 * t + 1], C[g + 8, 2 * t], C[g + 8, 2 * t + 1]])
 
 
-def phases(split, ah, al, bh, bl):
-    """The products of one k16 step, in mma_split's order."""
-    a_lo, b_lo = SPLITS[split]
-    out = [(ah, bh)]
-    if a_lo:
-        out.append((al, bh))
-    if b_lo:
-        out.append((ah, bl))
-    return out
-
-
-def bf16_fill(a, d, K, m0, n0, s, split, V):
-    """One stage of tile_bf16_kernel (fetch): A's halves [BM][TBK] and D's
-    [TBK][BN] as swizzled element arrays, with write counts. `a` is (M, 2K)
-    or (M, K), `d` (2K, N) or (K, N), as the split mode stores them."""
-    M, N = a.shape[0], d.shape[1]
-    a_lo, d_lo = SPLITS[split]
+def bf16_fill(a, d, m0, n0, s, V):
+    """One stage of tile_bf16_kernel (fetch): A's slab [BM][TBK] and D's
+    [TBK][BN] as swizzled element arrays, with write counts."""
+    (M, K), N = a.shape, d.shape[1]
     tid = np.arange(THREADS)
     out = {}
-    for name, halves, rows_n, row_b in (("a", a_lo, BM, TBK * 2), ("d", d_lo, TBK, BN * 2)):
+    for name, rows_n, row_b in (("a", BM, TBK * 2), ("d", TBK, BN * 2)):
         per_row = row_b // V
-        for h in range(2 if halves else 1):
-            sm, cnt = np.zeros(rows_n * row_b // 2), np.zeros(rows_n * row_b // 2, int)
-            for i in range(rows_n * per_row // THREADS):
-                c = tid + i * THREADS
-                row, off = c // per_row, (c % per_row) * V
-                if name == "a":
-                    dst = ak_swz(row, off >> 4) + (off & 15)
-                    k = s * TBK + off // 2
-                    for e in range(V // 2):
-                        full = (m0 + row < M) & (k + e < K)
-                        src = a[np.minimum(m0 + row, M - 1), h * K + np.minimum(k + e, K - 1)]
-                        sm[dst // 2 + e] = np.where(full, src, 0)
-                        np.add.at(cnt, dst // 2 + e, 1)
-                else:
-                    dst = kn_swz(row, off >> 4) + (off & 15)
-                    k, col = s * TBK + row, n0 + off // 2
-                    for e in range(V // 2):
-                        full = (k < K) & (col + e < N)
-                        src = d[h * K + np.minimum(k, K - 1), np.minimum(col + e, N - 1)]
-                        sm[dst // 2 + e] = np.where(full, src, 0)
-                        np.add.at(cnt, dst // 2 + e, 1)
-                if V == 16:  # each quarter-warp's 128 bytes over 32 banks
-                    for q in range(0, THREADS, 8):
-                        assert banks_ok((dst[q:q + 8, None] + 4 * np.arange(4)) // 4)
-            assert (cnt == 1).all()
-            out[name, h] = sm
+        sm, cnt = np.zeros(rows_n * row_b // 2), np.zeros(rows_n * row_b // 2, int)
+        for i in range(rows_n * per_row // THREADS):
+            c = tid + i * THREADS
+            row, off = c // per_row, (c % per_row) * V
+            if name == "a":
+                dst = ak_swz(row, off >> 4) + (off & 15)
+                k = s * TBK + off // 2
+                for e in range(V // 2):
+                    full = (m0 + row < M) & (k + e < K)
+                    sm[dst // 2 + e] = np.where(full, a[np.minimum(m0 + row, M - 1),
+                                                        np.minimum(k + e, K - 1)], 0)
+                    np.add.at(cnt, dst // 2 + e, 1)
+            else:
+                dst = kn_swz(row, off >> 4) + (off & 15)
+                k, col = s * TBK + row, n0 + off // 2
+                for e in range(V // 2):
+                    full = (k < K) & (col + e < N)
+                    sm[dst // 2 + e] = np.where(full, d[np.minimum(k, K - 1),
+                                                        np.minimum(col + e, N - 1)], 0)
+                    np.add.at(cnt, dst // 2 + e, 1)
+            if V == 16:  # each quarter-warp's 128 bytes over 32 banks
+                for q in range(0, THREADS, 8):
+                    assert banks_ok((dst[q:q + 8, None] + 4 * np.arange(4)) // 4)
+        assert (cnt == 1).all()
+        out[name] = sm
     return out
 
 
-def bf16_block(a, d, K, m0, n0, split, V):
+def bf16_block(a, d, m0, n0, V):
     """The block's outputs as tile_bf16_kernel computes and writes them."""
+    K = a.shape[1]
     lane = np.arange(32)
     g, t = lane >> 2, lane & 3
     acc = np.zeros((8, 4, 4, 4, 32))  # warp, mi, ni, q, lane
     for s in range((K + TBK - 1) // TBK):
-        st = bf16_fill(a, d, K, m0, n0, s, split, V)
+        st = bf16_fill(a, d, m0, n0, s, V)
         for warp in range(8):
             wm, wn = (warp >> 2) * 64, (warp & 3) * 32
             for ks in range(0, TBK, 16):
-                frag = {}
-                for h in range(2):
-                    if ("a", h) in st:
-                        frag["a", h] = [ldmatrix(st["a", h], ak_swz(
-                            wm + 16 * mi + (lane & 15), ks // 8 + (lane >> 4)), False)
-                            for mi in range(4)]
-                    if ("d", h) in st:
-                        bs = []
-                        for nj in range(2):
-                            r = ldmatrix(st["d", h], kn_swz(
-                                ks + (lane & 7) + ((lane >> 3) & 1) * 8,
-                                (wn + 16 * nj) // 8 + (lane >> 4)), True)
-                            bs += [r[0:2], r[2:4]]
-                        frag["d", h] = bs
-                ah, bh = frag["a", 0], frag["d", 0]
-                for fa, fb in phases(split, ah, frag.get(("a", 1)), bh, frag.get(("d", 1))):
-                    for mi in range(4):
-                        for ni in range(4):
-                            acc[warp, mi, ni] += mma16816(fa[mi], fb[ni])
+                fa = [ldmatrix(st["a"], ak_swz(wm + 16 * mi + (lane & 15), ks // 8 + (lane >> 4)),
+                               False) for mi in range(4)]
+                fb = []
+                for nj in range(2):
+                    r = ldmatrix(st["d"], kn_swz(ks + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                                 (wn + 16 * nj) // 8 + (lane >> 4)), True)
+                    fb += [r[0:2], r[2:4]]
+                for mi in range(4):
+                    for ni in range(4):
+                        acc[warp, mi, ni] += mma16816(fa[mi], fb[ni])
     out = np.full((BM, BN), np.nan)
     writes = np.zeros((BM, BN), int)
     for warp in range(8):
@@ -479,108 +457,22 @@ def bf16_block(a, d, K, m0, n0, split, V):
     return out, writes
 
 
-def split_reference(a, d, K, split):
-    """The product the split mode must give on the stacks, phase by phase."""
-    a_lo, d_lo = SPLITS[split]
-    ah, al = (a[:, :K], a[:, K:]) if a_lo else (a, None)
-    dh, dl = (d[:K], d[K:]) if d_lo else (d, None)
-    return sum(x @ y for x, y in phases(split, ah, al, dh, dl))
+# (V, M, K, N): the narrow copies that take this kernel (4 with K ending
+# mid slab, element copies with odd K and N), and the template at 16 bytes
+# over two slabs
+BF16_SHAPES = [(16, 128, 128, 128), (4, 100, 70, 130), (2, 129, 75, 131)]
 
 
-# (split, V, M, K, N): plain bf16 in each copy width (16 over two slabs, 4
-# with K ending mid slab, element copies with odd K and N), and each split
-# mode with 16-byte copies and ragged rows and columns past a block
-BF16_SHAPES = [("none", 16, 128, 128, 128), ("none", 4, 100, 70, 130),
-               ("none", 2, 129, 75, 131), ("both", 16, 130, 96, 136),
-               ("rhs", 16, 128, 40, 128), ("lhs", 16, 136, 64, 256)]
-
-
-@pytest.mark.parametrize("split,V,M,K,N", BF16_SHAPES)
-def test_bf16_block_writes_each_cell_once_with_the_product(split, V, M, K, N):
+@pytest.mark.parametrize("V,M,K,N", BF16_SHAPES)
+def test_bf16_block_writes_each_cell_once_with_the_product(V, M, K, N):
     rng = np.random.default_rng(K + V)
-    a_lo, d_lo = SPLITS[split]
-    a = rng.integers(-8, 9, (M, 2 * K if a_lo else K)).astype(np.float64)
-    d = rng.integers(-8, 9, (2 * K if d_lo else K, N)).astype(np.float64)
-    ref_all = split_reference(a, d, K, split)
+    a = rng.integers(-8, 9, (M, K)).astype(np.float64)
+    d = rng.integers(-8, 9, (K, N)).astype(np.float64)
+    ref_all = a @ d
     for m0, n0 in ((0, 0), (BM, BN)) if M > BM and N > BN else ((0, 0),):
-        out, writes = bf16_block(a, d, K, m0, n0, split, V)
+        out, writes = bf16_block(a, d, m0, n0, V)
         assert (writes == 1).all()
         ref = np.zeros((BM, BN))
         blk = ref_all[m0:m0 + BM, n0:n0 + BN]
         ref[:blk.shape[0], :blk.shape[1]] = blk
         np.testing.assert_array_equal(out, ref)
-
-
-def sym_bf16_block(a3, d, K, m0, n0, split):
-    """The block of sym_bf16_kernel: anchors `a3` (gt, H K, tc) and tile d
-    (H K, tc), H = 2 for the split mode; both slabs are (k, 128) rows."""
-    gt, _, tc = a3.shape
-    halves = 2 if split == "both" else 1
-    lane = np.arange(32)
-    g, t = lane >> 2, lane & 3
-    tid = np.arange(THREADS)
-    acc = np.zeros((8, 4, 4, 4, 32))
-    tile, col0 = m0 // tc, m0 % tc
-    for s in range((K + TBK - 1) // TBK):
-        st = {}
-        for h in range(halves):
-            for name, src_of in (("a", lambda k, c: a3[tile, h * K + k, col0 + c]),
-                                 ("d", lambda k, c: d[h * K + k, n0 + c])):
-                sm, cnt = np.zeros(TBK * BM), np.zeros(TBK * BM, int)
-                for i in range(TBK * BM * 2 // 16 // THREADS):
-                    c = tid + i * THREADS
-                    row, ch = c // 16, c % 16
-                    k = s * TBK + row
-                    dst = kn_swz(row, ch) // 2
-                    for e in range(8):
-                        sm[dst + e] = np.where(k < K, src_of(np.minimum(k, K - 1), ch * 8 + e), 0)
-                        np.add.at(cnt, dst + e, 1)
-                assert (cnt == 1).all()
-                st[name, h] = sm
-        for warp in range(8):
-            wm, wn = (warp >> 2) * 64, (warp & 3) * 32
-            for ks in range(0, TBK, 16):
-                frag = {}
-                for h in range(halves):
-                    frag["a", h] = [ldmatrix(st["a", h], kn_swz(
-                        ks + (lane & 7) + (lane >> 4) * 8, (wm + 16 * mi) // 8 + ((lane >> 3) & 1)),
-                        True) for mi in range(4)]
-                    bs = []
-                    for nj in range(2):
-                        r = ldmatrix(st["d", h], kn_swz(
-                            ks + (lane & 7) + ((lane >> 3) & 1) * 8,
-                            (wn + 16 * nj) // 8 + (lane >> 4)), True)
-                        bs += [r[0:2], r[2:4]]
-                    frag["d", h] = bs
-                for fa, fb in phases(split, frag["a", 0], frag.get(("a", 1)), frag["d", 0],
-                                     frag.get(("d", 1))):
-                    for mi in range(4):
-                        for ni in range(4):
-                            acc[warp, mi, ni] += mma16816(fa[mi], fb[ni])
-    out = np.full((BM, BN), np.nan)
-    writes = np.zeros((BM, BN), int)
-    for warp in range(8):
-        wm, wn = (warp >> 2) * 64, (warp & 3) * 32
-        for i in range(8):
-            rows = wm + 16 * (i >> 1) + 8 * (i & 1) + g
-            for j in range(8):
-                cols = wn + 8 * (j >> 1) + 2 * t + (j & 1)
-                out[rows, cols] = acc[warp, i >> 1, j >> 1, 2 * (i & 1) + (j & 1)]
-                np.add.at(writes, (rows, cols), 1)
-    return out, writes
-
-
-@pytest.mark.parametrize("split,K,m0,n0", [("none", 40, 128, 0), ("both", 100, 256, 128)])
-def test_sym_bf16_block_writes_each_cell_once_with_the_product(split, K, m0, n0):
-    """A block whose anchor rows are the second 128 columns of an anchor
-    tile (tc 256), K ending mid slab, both slabs read through ldmatrix
-    .trans."""
-    rng = np.random.default_rng(K)
-    gt, tc, halves = 2, 256, 2 if split == "both" else 1
-    a3 = rng.integers(-8, 9, (gt, halves * K, tc)).astype(np.float64)
-    d = rng.integers(-8, 9, (halves * K, tc)).astype(np.float64)
-    out, writes = sym_bf16_block(a3, d, K, m0, n0, split)
-    assert (writes == 1).all()
-    anchors = a3.transpose(0, 2, 1).reshape(gt * tc, halves * K)[m0:m0 + BM]
-    ref = split_reference(anchors, d[:, n0:n0 + BN], K, split)
-    np.testing.assert_array_equal(out, ref)

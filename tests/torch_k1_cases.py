@@ -43,6 +43,24 @@ CARD_CASES = [(mode, carry_on, mask, label)
 # product changes the sums; K 4,096 keeps every int32 sum exact
 CARD_CASES += [("int8", True, "none", "full-range")]
 CARD_SHAPES.append(("full-range", (128, 4096, 512, 64)))
+# the wgmma kernel's edges (bf16 with 16-byte rows): M and N past a 128 x
+# 128 block's edge, K ending mid-slab (two slabs of 64 K rows and 8)
+CARD_SHAPES.append(("wgmma-edges", (200, 136, 264, 40)))
+CARD_CASES += [(mode, True, "allowed", "wgmma-edges") for mode in MODES]
+
+
+def product_kernel(mode, K, N):
+    """The product kernel (tile_topk.PRODUCT_KERNELS) that a K1 or K3 launch
+    takes for operands at PyTorch's 256-byte aligned bases, with rows of K
+    (A) and N (D) elements (csrc/tile_kernels.cuh: product_kernel): bf16
+    and the split modes on wgmma when both rows are 16-byte multiples."""
+    if mode == "f32":
+        return "simt"
+    if mode == "int8":
+        return "mma.sync s8"
+    wide = (2 * K) % 16 == 0 and (2 * N) % 16 == 0
+    return "wgmma bf16" if wide or mode in ("both", "rhs", "lhs") else "mma.sync bf16"
+
 
 # int8 products are exact everywhere, so int8 values are bit-equal -- except
 # through `pow`, which each implementation takes from its own math library
@@ -163,16 +181,19 @@ SPLITS = ("both", "rhs", "lhs")
 # CPU parity against the JAX kernel: every mode x carry x mask, on SHAPES
 SPLIT_CASES = [(split, carry_on, mask)
                for split in SPLITS for carry_on in (False, True) for mask in MASKS]
-# card only, as CARD_SHAPES for the split kernels, which take 16-byte copies
-# (u and tc multiples of 8): K shorter than one slab of the 3-slab ring of
-# 64 K rows, with fewer rows than a block; M = 256 with K ending mid-ring and mid-slab
-# and a ragged last column block; the executor's widest tile
+# card only, as CARD_SHAPES for the split kernels, which take 16-byte rows
+# (u and tc multiples of 8): K shorter than one slab of 64 K rows, with
+# fewer rows than a block; M = 256 with K ending mid-ring and mid-slab and a
+# ragged last column block; the executor's widest tile; M, N and K all past
+# a block's or slab's edge
 SPLIT_CARD_SHAPES = [("split-ring-short", (40, 40, 96, 16)),
                      ("split-m256-mid-ring", (256, 1000, 264, 40)),
-                     ("split-widest-tc", (136, 384, 8192, 104))]
+                     ("split-widest-tc", (136, 384, 8192, 104)),
+                     ("split-wgmma-edges", (200, 136, 264, 40))]
 SPLIT_CARD_CASES = [(split, carry_on, mask, label)
                     for (label, _), (carry_on, mask) in zip(
-                        SPLIT_CARD_SHAPES, ((True, "filter"), (False, "allowed"), (True, "target")))
+                        SPLIT_CARD_SHAPES, ((True, "filter"), (False, "allowed"), (True, "target"),
+                                            (True, "allowed")))
                     for split in SPLITS]
 # kernel against plain version on the card: both sum the same exact bf16
 # products in f32, in another order (rtol as the f32 cases; these cases

@@ -66,7 +66,9 @@ CARD_CASES = [
 # (u 128 for int8, u 40 for every mode, which also ends inside a slab), K
 # that ends mid-ring and mid-slab (u 1,000: 32 and 8 slabs), a band that
 # cuts the anchor group (gt 3, t = a0 + 1: a live, a diagonal and a dead
-# tile), the asymmetric epilogue on a diagonal block at tc 2,048; and int8
+# tile), the asymmetric epilogue on a diagonal block at tc 2,048, a band
+# whose second anchor tile is dead, three column blocks and K ending
+# mid-slab (u 136: the bf16 wgmma kernel's 64-row slabs); and int8
 # values over all of [-128, 127] at u 4,096, where no int32 sum can
 # overflow (a u8 or a PRMT selector slip changes the products). tc 128 and
 # 384 leave the int8 kernel's last 256-wide column block half empty.
@@ -79,6 +81,7 @@ CARD_CASES += [
         ("mid-ring-u1000", "live", True, "sym", 384, 2, 1000, 40),
         ("band-cut-gt3", "cut", True, "sym", 256, 3, 512, 32),
         ("asym-diagonal-tc2048", "diagonal", False, "asym", 2048, 2, 640, 100),
+        ("band-u136-tc384", "band", True, "sym", 384, 2, 136, 24),
     )
 ] + [_case("int8", "live", True, "sym", tc=512, gt=2, u=4096, k=64, label="full-range",
            full_range=True)]
@@ -97,9 +100,9 @@ SPLIT_CASES = [
 ] + [_case("split", "cut", True, "sym", gt=3, label="band-cut")]
 # on the card only: the main path's widths (sw = 2,048, gt 1; sw = 18,432,
 # gt 9, warm and asymmetric), the ring's edges (K shorter than one slab of
-# the 3-slab ring of 64 K rows; K ending mid-ring and mid-slab), a diagonal
-# block with the asymmetric epilogue at tc 2,048, and a band that cuts the
-# anchor group. Kernel against plain version: the same exact bf16 products
+# 64 K rows; K ending mid-ring and mid-slab), a diagonal block with the
+# asymmetric epilogue at tc 2,048, a band that cuts the anchor group, and a
+# band with a dead anchor tile, three column blocks and K ending mid-slab. Kernel against plain version: the same exact bf16 products
 # summed in f32 in another order (rtol as the f32 cases, 1e-5)
 SPLIT_CARD_CASES = [
     _case("split", "live", carry_on, epi, tc=2048, gt=gt, u=512, k=100)
@@ -111,6 +114,7 @@ SPLIT_CARD_CASES = [
         ("mid-ring-u1000", "live", True, "sym", 384, 2, 1000, 40),
         ("band-cut-gt3", "cut", True, "sym", 256, 3, 512, 32),
         ("asym-diagonal-tc2048", "diagonal", False, "asym", 2048, 2, 640, 100),
+        ("band-u136-tc384", "band", True, "sym", 384, 2, 136, 24),
     )
 ]
 

@@ -42,6 +42,10 @@ CARD_CASES += [(mode, bias_on, mask, si)
 CARD_FULL_RANGE = len(CARD_SHAPES)
 CARD_SHAPES.append((768, 256, 2, 40))
 CARD_CASES.append(("int8", True, "none", CARD_FULL_RANGE))
+# bf16 with the bias on the wgmma kernel's edges: K ending mid-slab (16
+# slabs of 64 K rows and 40) and a group width past a 128-wide block (600)
+CARD_SHAPES.append((1064, 200, 3, 40))
+CARD_CASES.append(("bf16", True, "filter", len(CARD_SHAPES) - 1))
 
 
 def case_id(case) -> str:
