@@ -140,12 +140,18 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
              before and read just after: kernel_check's transposed-lhs probe
              (P1) in int8, bf16 and f32, and micro_int4's rate probe (P2) in
              int8 and s4 (exact against the oracle x steps, best-of-3 time,
-             TOP/s). Then P1 against its plain version, bit-equal on
+             TOP/s), with the product kernel each launch took (P1 int8
+             `wgmma s8` after the K-major pass, bf16 `wgmma bf16` and f32
+             `simt cp.async ring`, K2's products; P2 int8 `wgmma s8`, s4
+             `mma.sync s4`). Then P1 against its plain version, bit-equal on
              integer data, in every dtype at the probe's shape, on ragged
              shapes, and at K2's full-width block (K = u_pad 200,960, M = N
-             = 2,048; 4,096 for int8), with kernel, plain, library
+             = 2,048; 4,096 for int8; each dtype must take its new product
+             kernel there), with kernel, plain, library
              (torch.matmul(a.t(), b) with TF32 off; torch._int_mm with the
-             transpose copies and without) and bound times; P1 f32 on
+             transpose copies and without) and bound times, two calls'
+             device time by kernel (torch.profiler), and for int8 the
+             K-major pass alone and the product alone; P1 f32 on
              standard-normal data at the probe's shape, a ragged one and
              K2's block, its mean scaled error within the f32 tolerance
              that a TF32 product exceeds; P2 against its plain version on
@@ -216,6 +222,9 @@ PROBE_KERNELS = ("probe_tlhs", "probe_int_mma")
 # of its own in `kernels`: the same sources, their launches in the main
 # path's 'high' calls
 SPLIT_KERNELS = {"tile_topk:split-bf16x3": "tile_topk", "sym_topk:split-bf16x3": "sym_topk"}
+# the product kernel P1 takes in each dtype on rows of 16-byte multiples
+# (benchmarks/probes.py: TLHS_KERNELS)
+P1_NEW_KERNEL = {"int8": "wgmma s8", "bfloat16": "wgmma bf16", "float32": "simt cp.async ring"}
 # P1 at K2's full-width block: (K, M, N); int8 blocks are 4,096 wide
 P1_FULL = {"float32": (200_960, 2048, 2048), "bfloat16": (200_960, 2048, 2048),
            "int8": (200_960, 4096, 4096)}
@@ -1740,7 +1749,10 @@ def _probe_path(torch, pr, kc, mi4, dev):
     before and read just after: kernel_check's P1 probe in each dtype and
     micro_int4's P2 probe in each mode."""
     pr.reset_counts()
-    p1 = {dt: kc.probe_transposed_lhs(dt, dev) for dt in kc.PROBE_DTYPES}
+    p1, p1_kernels = {}, {}
+    for dt in kc.PROBE_DTYPES:
+        p1[dt] = kc.probe_transposed_lhs(dt, dev)
+        p1_kernels[dt] = pr.tlhs_counts.last_kernel
     p2 = {mode: mi4.probe(mode, mi4.STEPS, mi4.REPS, dev) for mode in ("int8", "s4")}
     torch.cuda.synchronize()
     launches = {"probe_tlhs": pr.tlhs_counts.kernel_launches,
@@ -1752,8 +1764,17 @@ def _probe_path(torch, pr, kc, mi4, dev):
     bad += [mode for mode, r in p2.items() if not r["exact"]]
     if bad:
         raise AssertionError(f"probe path: wrong results in {bad}")
+    kernels = {**{f"P1_{dt}": k for dt, k in p1_kernels.items()},
+               **{f"P2_{mode}": r["kernel"] for mode, r in p2.items()}}
+    want = {f"P1_{dt}": k for dt, k in P1_NEW_KERNEL.items()}
+    want.update(P2_int8="wgmma s8", P2_s4="mma.sync s4")
+    if kernels != want:
+        raise AssertionError(f"probe path: product kernels {kernels}, expected {want}")
     return {"p1": {dt: status for dt, (status, _) in p1.items()}, "p2": p2,
-            "launches": launches}
+            "launches": launches, "product_kernels": kernels,
+            "product_launches": {"probe_tlhs": dict(pr.tlhs_counts.product_launches),
+                                 "probe_int_mma": dict(pr.int_mma_counts.product_launches)},
+            "kmajor_passes": pr.tlhs_counts.pass_launches + pr.int_mma_counts.pass_launches}
 
 
 def _probe_cases():
@@ -1843,13 +1864,31 @@ def _time_p1(torch, pr, dtype):
     a = torch.randint(-5, 6, (K, M), generator=gen, device=dev, dtype=torch.int8).to(tdt)
     b = torch.randint(-5, 6, (K, N), generator=gen, device=dev, dtype=torch.int8).to(tdt)
     got = pr.transposed_lhs_product(a, b)
+    out["product_kernel"] = pr.tlhs_counts.last_kernel
+    if out["product_kernel"] != P1_NEW_KERNEL[dtype]:
+        raise AssertionError(f"times P1 {dtype}: took {out['product_kernel']}, "
+                             f"not {P1_NEW_KERNEL[dtype]}")
     ref = pr.transposed_lhs_product_plain(a, b)
     if not torch.equal(got, ref):
         raise AssertionError(f"times P1 {dtype}: differs from the plain version")
     del got
     kernel_ms = _time_ms(torch, lambda: pr.transposed_lhs_product(a, b), 5)
+    # device time by kernel of two calls (int8: two passes and the product a
+    # call), ms and launches: the profiler can drop a window's first record
+    out["profile"] = _profile(torch, lambda: [pr.transposed_lhs_product(a, b) for _ in range(2)])
     plain_ms = _time_ms(torch, lambda: pr.transposed_lhs_product_plain(a, b), 3)
     if dtype == "int8":
+        # the call's pieces: the K-major pass on each operand, the product
+        # on its output
+        ka, kb = pr.kmajor_pass(a), pr.kmajor_pass(b)
+        if not torch.equal(pr.s8_kmajor_product(ka, kb, M, N), ref):
+            raise AssertionError("times P1 int8: the product alone differs")
+        out["pass_a_ms"] = _time_ms(torch, lambda: pr.kmajor_pass(a), 5)
+        out["pass_b_ms"] = _time_ms(torch, lambda: pr.kmajor_pass(b), 5)
+        out["pass_bound_ms"] = 1e3 * 2.0 * K * M / PEAK_BYTES  # one operand read and written
+        out["product_ms"] = _time_ms(torch, lambda: pr.s8_kmajor_product(ka, kb, M, N), 5)
+        out["product_tops"] = 2.0 * K * M * N / out["product_ms"] / 1e9
+        del ka, kb
         at, bt = a.t().contiguous(), b.t().contiguous()
         if not torch.equal(torch._int_mm(at, bt.t()), ref):
             raise AssertionError("times P1 int8: _int_mm on K-major operands differs")
@@ -1881,6 +1920,8 @@ def _time_p2(torch, pr, mi4, p2):
     so its bound is one product's (here its bytes) and its library yardstick
     one torch._int_mm times steps. The probe's own figure, the rate of its
     `steps` products against the int8 peak, is kept beside them."""
+    if p2["int8"]["kernel"] != "wgmma s8" or p2["s4"]["kernel"] != "mma.sync s4":
+        raise AssertionError(f"times P2: kernels {p2['int8']['kernel']}, {p2['s4']['kernel']}")
     a, b = mi4.inputs(torch.device("cuda"))
     steps = mi4.STEPS
     ref = pr.int_rate_product_plain(a, b, steps)
@@ -1891,7 +1932,7 @@ def _time_p2(torch, pr, mi4, p2):
     bound, bound_by = _bound(ops, nbytes, int8=True)
     return {
         "shape": {"M": mi4.M, "K": mi4.K, "N": mi4.N, "steps": steps},
-        "kernel_ms": p2["int8"]["ms"], "max_abs_err": 0.0,
+        "product_kernel": p2["int8"]["kernel"], "kernel_ms": p2["int8"]["ms"], "max_abs_err": 0.0,
         "plain_ms": _time_ms(torch, lambda: pr.int_rate_product_plain(a, b, steps), 3),
         "library_ms": _time_ms(torch, lambda: torch._int_mm(a, b) * steps, 5),
         "bound_ms": bound, "bound_by": bound_by,

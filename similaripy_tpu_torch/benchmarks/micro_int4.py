@@ -14,8 +14,9 @@ the best of 3 rounds of ``reps`` calls, by CUDA events; the rate is
 ``2 * M * K * N * steps / time``, and the rate bound the time the card's
 dense int8 peak (1,979 TOP/s, H100 SXM data sheet) would take for the
 ``steps`` products. (The function itself, ``steps * A . B``, needs only
-one product; the probe repeats it to measure the rate.) Prints ms per
-call, TOP/s, the rate bound and the s4/int8 ratio.
+one product; the probe repeats it to measure the rate.) Prints the product
+kernel each mode ran (int8 ``wgmma s8`` after the K-major pass, s4
+``mma.sync s4``), ms per call, TOP/s, the rate bound and the s4/int8 ratio.
 ``--device cpu`` checks exactness only (the plain version; no timing).
 """
 
@@ -61,18 +62,20 @@ def best_ms(fn, reps: int, rounds: int = 3) -> float:
 def probe(mode: str, steps: int = STEPS, reps: int = REPS, device="cuda", shape=(M, K, N)):
     """One mode: exactness against the oracle and, on a card, the best
     time. Returns a dict (ms, tops None on the CPU)."""
-    from .probes import int_rate_product
+    from .probes import int_mma_counts, int_rate_product
 
     m, k, n = shape
     a, b = inputs(device, m, k, n)
     out = int_rate_product(a, b, steps, mode)
+    on_card = torch.device(device).type == "cuda"
+    kernel = int_mma_counts.last_kernel if on_card else None  # the CPU runs the plain version
     oracle = (a.cpu().numpy().astype(np.int64) @ b.cpu().numpy().astype(np.int64)) * steps
     got = out.cpu().numpy()
     exact = bool(np.array_equal(got, oracle))
-    res = {"mode": mode, "shape": [m, k, n], "steps": steps, "exact": exact,
+    res = {"mode": mode, "kernel": kernel, "shape": [m, k, n], "steps": steps, "exact": exact,
            "max_abs_diff": int(np.max(np.abs(got - oracle))) if got.size else 0,
            "ms": None, "tops": None, "bound_ms": bound_ms(m, k, n, steps)}
-    if exact and torch.device(device).type == "cuda":
+    if exact and on_card:
         ms = best_ms(lambda: int_rate_product(a, b, steps, mode), reps)
         res["ms"] = ms
         res["tops"] = 2.0 * m * k * n * steps / ms / 1e9
@@ -101,7 +104,7 @@ def main(argv=None) -> int:
             print(f"# {mode}: exact (time not measured on the CPU)", flush=True)
             continue
         rates[mode] = r["tops"]
-        print(f"# {mode}: {r['ms']:.4f} ms/call -> {r['tops']:.1f} TOP/s "
+        print(f"# {mode} ({r['kernel']}): {r['ms']:.4f} ms/call -> {r['tops']:.1f} TOP/s "
               f"(rate bound {r['bound_ms']:.4f} ms)", flush=True)
     if len(rates) == 2:
         print(f"# verdict: s4 is {rates['s4'] / rates['int8']:.2f}x int8", flush=True)

@@ -1,23 +1,26 @@
-"""What the in-kernel int8 transpose costs in P1 and in K2, on a CUDA card.
+"""What the int8 transposes cost in P1 and in K2, on a CUDA card.
 
     python -m similaripy_tpu_torch.benchmarks.tlhs_transpose_cost [--reps 5] [--rounds 3]
 
-P1's int8 kernel (``csrc/probe_tlhs.cu``) transposes both operands in
-registers (PRMT) on their way into shared memory; K2's int8 product
-(``csrc/sym_topk.cu``) transposes each warp's fragments in registers as it
-reads them from its copy ring. Both use ``transpose4x4`` of
-``csrc/tensor_core.cuh``. This script builds the two sources a second time
-with ``-DNO_PRMT_TRANSPOSE``, which compiles only that pass out: every
-load, store and ``mma.sync`` stays as it is, and the products come out
-wrong. It checks that each real kernel is right (P1 equals its plain
-version; K2's raw-product scores equal P1's product) and that each control
-is not (so the pass really went), then times real and control on one int8
-block of K2's full-width shape (K = u_pad 200,960, M = N = 4,096, values
-in [-5, 5]; for K2 its product launch alone), interleaved as real,
-control, control, real in each round; each reading is the mean of ``reps``
-calls by CUDA events. Prints one JSON line: the card, P1's medians and
-readings at the top level, K2's under ``k2``, and each transpose's share
-of its real kernel's time. Needs a card; exits 1 without one.
+P1's int8 call (``csrc/probe_tlhs.cu``) transposes both operands in a
+K-major pass of its own (``csrc/kmajor.cuh``) and then runs ``wgmma`` s8 on
+the K-major tiles; the script times the call, the pass on each operand and
+the product alone (``probes.s8_kmajor_product``), interleaved in each
+round, and checks that the call and the product alone equal P1's plain
+version. K2's int8 product (``csrc/sym_topk.cu``) transposes each warp's
+fragments in registers (PRMT, ``transpose4x4`` of
+``csrc/tensor_core.cuh``) as it reads them from its copy ring: the script
+builds ``sym_topk.cu`` a second time with ``-DNO_PRMT_TRANSPOSE``, which
+compiles only that pass out (every load, store and ``mma.sync`` stays, the
+products come out wrong), checks that the real kernel is right (its
+raw-product scores equal P1's product) and that the control is not, and
+times real and control interleaved as real, control, control, real in
+each round. Both on one int8 block of K2's full-width shape (K = u_pad
+200,960, M = N = 4,096, values in [-5, 5]; for K2 its product launch
+alone); each reading is the mean of ``reps`` calls by CUDA events. Prints
+one JSON line: the card, P1's medians and readings under ``p1`` (the
+passes' share of the call), K2's under ``k2`` (the transpose's share of
+its real kernel's time). Needs a card; exits 1 without one.
 """
 
 from __future__ import annotations
@@ -33,13 +36,13 @@ import numpy as np
 import torch
 
 SHAPE = (200_960, 4096, 4096)  # (K, M, N): K2's int8 block at full width
-_P_INT8 = 2  # probe_tlhs's and sym_product's mode number for int8
-_SOURCES = ("probe_tlhs.cu", "sym_topk.cu")
+_P_INT8 = 2  # sym_product's mode number for int8
+_SOURCES = ("sym_topk.cu",)
 
 
 def build_control():
-    """P1's and K2's sources built with the transpose compiled out, as one
-    library next to the engine's; returns it loaded."""
+    """K2's source built with the transpose compiled out, as a library next
+    to the engine's; returns it loaded."""
     from ..engine import build
 
     srcs = [build.CSRC / name for name in _SOURCES]
@@ -58,8 +61,6 @@ def build_control():
         tmp.replace(out)
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.probe_tlhs.argtypes = [i, p, p, i, i, i, p, p]
-    lib.probe_tlhs.restype = i
     lib.sym_product.argtypes = [i, p, p, i, i, i, p, p, i, p, p, p, p]
     lib.sym_product.restype = i
     return lib
@@ -87,6 +88,17 @@ def _interleaved(run_real, run_control, reps: int, rounds: int) -> dict:
             "readings_ms": readings}
 
 
+def _p1_pieces(runs: dict, reps: int, rounds: int) -> dict:
+    """The medians of P1's call and its pieces, each timed in every round."""
+    readings = {name: [] for name in runs}
+    for _ in range(rounds):
+        for name, fn in runs.items():
+            readings[name].append(_mean_ms(fn, reps))
+    med = {f"{name}_ms": float(np.median(r)) for name, r in readings.items()}
+    med["passes_share"] = (med["pass_a_ms"] + med["pass_b_ms"]) / med["call_ms"]
+    return {**med, "readings_ms": readings}
+
+
 def _k2_product(lib, a, b, out_r, out_c, pvec, vecs, stream):
     """K2's product launch on the block a^T . b (one anchor tile, a live
     block: every row feeds both sides) with the raw epilogue, into out_r
@@ -112,24 +124,17 @@ def run(reps: int = 5, rounds: int = 3) -> dict:
     b = torch.randint(-5, 6, (K, N), generator=gen, device=dev, dtype=torch.int8)
     control = build_control()
     engine = build.load()
-    out = torch.empty((M, N), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def p1_control():
-        err = control.probe_tlhs(_P_INT8, a.data_ptr(), b.data_ptr(), K, M, N,
-                                 out.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"the no-transpose control failed to launch: CUDA error {err}")
-
-    def p1_real():
-        return probes.transposed_lhs_product(a, b)
-
     ref = probes.transposed_lhs_product_plain(a, b)
-    if not torch.equal(p1_real(), ref):
+    probes.reset_counts()
+    if not torch.equal(probes.transposed_lhs_product(a, b), ref):
         raise AssertionError("P1 int8 differs from its plain version")
-    p1_control()
-    if torch.equal(out, ref):
-        raise AssertionError("the P1 control gave the right product: the transpose was not removed")
+    if probes.tlhs_counts.last_kernel != "wgmma s8":
+        raise AssertionError(f"P1 int8 took {probes.tlhs_counts.last_kernel}, not wgmma s8")
+    at, bt = probes.kmajor_pass(a), probes.kmajor_pass(b)
+    if not torch.equal(probes.s8_kmajor_product(at, bt, M, N), ref):
+        raise AssertionError("P1's int8 product on the K-major pass's output differs")
     # K2: the raw epilogue (no S-Plus denominator, threshold -inf, scale 1)
     # writes every nonzero product as it is, so the row-side scores must be
     # P1's product and the col-side scores its transpose
@@ -152,13 +157,18 @@ def run(reps: int = 5, rounds: int = 3) -> dict:
     torch.cuda.synchronize()
 
     ops = 2.0 * K * M * N
-    p1 = _interleaved(p1_real, p1_control, reps, rounds)
+    p1 = _p1_pieces({"call": lambda: probes.transposed_lhs_product(a, b),
+                     "pass_a": lambda: probes.kmajor_pass(a),
+                     "pass_b": lambda: probes.kmajor_pass(b),
+                     "product": lambda: probes.s8_kmajor_product(at, bt, M, N)}, reps, rounds)
+    p1["product_tops"] = ops / p1["product_ms"] / 1e9
+    p1["call_tops"] = ops / p1["call_ms"] / 1e9
     k2 = _interleaved(lambda: _k2_product(engine, a, b, out_r, out_c, pvec, vecs, stream),
                       lambda: _k2_product(control, a, b, out_r, out_c, pvec, vecs, stream),
                       reps, rounds)
     k2["kernel_tops"] = ops / k2["kernel_ms"] / 1e9
-    return {"shape": {"K": K, "M": M, "N": N, "dtype": "int8"}, "reps": reps, **p1,
-            "kernel_tops": ops / p1["kernel_ms"] / 1e9, "k2": k2}
+    return {"shape": {"K": K, "M": M, "N": N, "dtype": "int8"}, "reps": reps, "p1": p1,
+            "k2": k2}
 
 
 def main(argv=None) -> int:

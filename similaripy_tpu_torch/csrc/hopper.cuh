@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks of the bf16 tensor-core products of K1/K3
-// (tile_kernels.cuh: tile_wgmma_kernel) and K2 (sym_topk.cu:
-// sym_wgmma_kernel), in inline PTX: mbarriers, TMA tensor loads, the wgmma
-// shared-memory descriptor of 128-byte-swizzled operands, wgmma.mma_async
-// m64n128k16 bf16 -> f32 with its fence, commit and wait, the cluster
-// pieces of the block pairs (rank, remote arrival, cluster barrier, TMA
-// multicast), the host-side tensor-map encoding and paired launch, and the
-// warp-specialised block that both products share (wgmma_block).
+// (tile_kernels.cuh: tile_wgmma_kernel), K2 and P1 (mn_products.cuh:
+// mn_wgmma_block) and of the int8 products of the probes P1 and P2
+// (probe_tlhs.cu, probe_int_mma.cu), in inline PTX: mbarriers, TMA tensor
+// loads, the wgmma shared-memory descriptor of 128-byte-swizzled operands,
+// wgmma.mma_async m64n128k16 bf16 -> f32 and m64n256k32 s8 -> s32 with
+// their fence, commit and wait, the cluster pieces of the block pairs
+// (rank, remote arrival, cluster barrier, TMA multicast), the host-side
+// tensor-map encoding and paired launch, and the warp-specialised blocks
+// (wgmma_block for bf16, wgmma_block_s8 for int8).
 //
 // The block (WG_THREADS = 288 threads): warps 0-3 and 4-7 are two consumer
 // warpgroups, each owning a 64-row strip of the 128 x 128 output block;
@@ -34,7 +36,13 @@
 //     tc)): a box of 64 K rows of 128 B of M or N; SBO = 1024 (8 K rows),
 //     LBO = 8 KB (the next box: the next 64 of M or N), and the k16 step t
 //     starts 16 t rows (2 KB t) in.
-// tests/test_torch_wgmma_layout.py models these maps in NumPy.
+// int8 (every box 128 x 64 bytes = 8 KB, the same geometry): wgmma takes an
+// 8-bit operand only K-major (PTX has no transpose for it), so both operands
+// of an s8 product are K-major rows of 128 B of K (a box {128, 64} of a (K,
+// rows) map), read with SBO = 1024 and LBO unused, and the k32 step t starts
+// 32 t bytes into the rows: the bf16 K-major layout, byte for byte.
+// tests/test_torch_wgmma_layout.py models these maps in NumPy, and
+// tests/test_torch_s8_wgmma_layout.py the int8 ones.
 
 #pragma once
 
@@ -134,6 +142,15 @@ __device__ __forceinline__ void cluster_sync() {
 // cluster and signals each block's barrier at the same place
 // ---------------------------------------------------------------------------
 
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2) {
   asm volatile(
@@ -144,6 +161,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
 }
 
 constexpr uint16_t BOTH_BLOCKS = 0b11;  // the multicast's cluster mask
+
+__device__ __forceinline__ void tma_load_2d_both(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                                 int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "h"(BOTH_BLOCKS), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
 
 __device__ __forceinline__ void tma_load_3d_both(void* dst, const CUtensorMap* map, uint64_t* bar,
                                                  int c0, int c1, int c2) {
@@ -197,6 +224,11 @@ __device__ __forceinline__ void wgmma_fence_operand(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+__device__ __forceinline__ void wgmma_fence_operand(int (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // d (64 x 128, f32) = (scale_d ? d : 0) + A (64 x 16) . B (16 x 128), bf16
 // operands from shared memory; TRANS_A / TRANS_B are 1 for an MN-major
 // operand. Fragment (lane = 4 g + tig of warp w of the warpgroup): d[4 j +
@@ -236,6 +268,71 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// d (64 x 256, s32) = (scale_d ? d : 0) + A (64 x 32) . B (32 x 256), s8
+// operands from shared memory, both K-major (8-bit wgmma has no transpose).
+// The fragment is the f32 one, 32 columns of 8 wide: d[4 j + 2 i + c] is
+// row 16 w + 8 i + g, column 8 j + 2 tig + c. Integer sums are exact in any
+// order.
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // ---------------------------------------------------------------------------
@@ -341,6 +438,89 @@ __device__ __forceinline__ void wgmma_block(unsigned char* smem, int n_slabs, Lo
 }
 
 // ---------------------------------------------------------------------------
+// the warp-specialised int8 product of one 128 x 256 block
+// ---------------------------------------------------------------------------
+
+constexpr int WG_S8_BK = 128;                          // K bytes per slab: four k32 steps
+constexpr int WG_S8_BN = 256;                          // the block's columns (B's rows)
+constexpr int WG_S8_SLAB = (2 + WG_S8_BN / 64) * BOX_BYTES;  // A's 2 boxes, then B's 4
+constexpr int WG_S8_STAGES = RING_BYTES / WG_S8_SLAB;  // 4 slabs of 48 KB
+constexpr size_t WG_S8_SMEM =
+    1024 + (size_t)WG_S8_STAGES * WG_S8_SLAB + 2 * WG_S8_STAGES * sizeof(uint64_t);
+
+// wgmma_block's int8 sibling, for two K-major operands (A: 128 rows, B: 256
+// rows, each in 64-row boxes of 128 K bytes), in cluster pairs that share
+// A, with the same producer, ring protocol and pair barriers: load(s,
+// stage, bar, rank) issues slab s's boxes, A's box `rank` multicast into
+// both blocks. Consumer warpgroup wg multiplies A's box wg by B's 256 rows
+// (one K-major operand of 32 KB, SBO 1024) with m64n256k32: 128 int32
+// totals a thread (154 registers; no spill). int32 sums are exact in any
+// order, so every wgmma adds straight into the total (scale-d 1 on zeroed
+// registers: no per-slab partial), and a slab's wgmmas stay in flight while
+// the next slab's are issued: a slab is released once the group after it
+// is committed and its own has completed (wait_group 1). Then epi(total,
+// wg, warp of the warpgroup, lane) writes the strip. Of 128 x 128 and 128 x
+// 256 blocks, each with and without pairs, 128 x 256 in pairs timed fastest
+// at K2's int8 block on an H100, and pairs were faster at both widths
+// (PERF.md §6).
+template <typename Load, typename Epi>
+__device__ __forceinline__ void wgmma_block_s8(unsigned char* smem, int n_slabs, Load load,
+                                               Epi epi) {
+  unsigned char* ring = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + WG_S8_STAGES * WG_S8_SLAB);
+  uint64_t* empty = full + WG_S8_STAGES;
+  const int tid = threadIdx.x;
+  const uint32_t rank = cluster_rank();
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < WG_S8_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * WG_CONSUMERS / 32);  // the consumer warps of both blocks
+    }
+    mbar_fence_init();
+  }
+  cluster_sync();
+
+  if (tid >= WG_CONSUMERS) {  // the producer warp
+    if (tid == WG_CONSUMERS) {
+      for (int s = 0; s < n_slabs; ++s) {
+        const int st = s % WG_S8_STAGES;
+        mbar_wait(&empty[st], ((s / WG_S8_STAGES) & 1) ^ 1);  // the slab's last use is over
+        mbar_arrive_expect_tx(&full[st], WG_S8_SLAB);
+        load(s, ring + st * WG_S8_SLAB, &full[st], rank);
+      }
+    }
+  } else {
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    int total[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) total[i] = 0;
+    for (int s = 0; s < n_slabs; ++s) {
+      const int st = s % WG_S8_STAGES;
+      mbar_wait(&full[st], (s / WG_S8_STAGES) & 1);
+      const unsigned char* sa = ring + st * WG_S8_SLAB + wg * BOX_BYTES;
+      const unsigned char* sb = ring + st * WG_S8_SLAB + 2 * BOX_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < WG_S8_BK / 32; ++t)  // k32 step t: 32 t bytes into the rows
+        wgmma_m64n256k32_s8(total, sw128_desc(sa + 32 * t, BOX_BYTES),
+                            sw128_desc(sb + 32 * t, BOX_BYTES), 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // slab s - 1's wgmmas are done
+      if (s > 0 && lane == 0) {
+        const int prev = (s - 1) % WG_S8_STAGES;
+        mbar_arrive(&empty[prev]);
+        mbar_arrive_cluster(&empty[prev], rank ^ 1);
+      }
+    }
+    wgmma_wait<0>();
+    wgmma_fence_operand(total);
+    epi(total, wg, warp, lane);
+  }
+  cluster_sync();
+}
+
+// ---------------------------------------------------------------------------
 // host: tensor maps
 // ---------------------------------------------------------------------------
 
@@ -369,24 +549,41 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor of RANK dimensions at `base` (dims innermost first, in
+// A tensor of `type` and RANK dimensions at `base` (dims innermost first, in
 // elements; strides of dims 1.. in bytes), read in boxes of `box` elements
-// (the innermost 64: 128 bytes, the swizzle's width) into 128-byte-swizzled
+// (the innermost 128 bytes, the swizzle's width) into 128-byte-swizzled
 // shared memory; elements past a dimension's end read as zeros.
+template <int RANK>
+inline cudaError_t sw128_tensor_map(CUtensorMap* map, CUtensorMapDataType type,
+                                    const void* base, const cuuint64_t (&dims)[RANK],
+                                    const cuuint64_t (&strides)[RANK - 1],
+                                    const cuuint32_t (&box)[RANK]) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  cuuint32_t unit[RANK];
+  for (int i = 0; i < RANK; ++i) unit[i] = 1;
+  const CUresult r = fn(map, type, RANK, const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// bf16: boxes of 64 elements innermost
 template <int RANK>
 inline cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base,
                                    const cuuint64_t (&dims)[RANK],
                                    const cuuint64_t (&strides)[RANK - 1],
                                    const cuuint32_t (&box)[RANK]) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (!fn) return cudaErrorNotSupported;
-  cuuint32_t unit[RANK];
-  for (int i = 0; i < RANK; ++i) unit[i] = 1;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, RANK, const_cast<void*>(base), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return sw128_tensor_map<RANK>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box);
+}
+
+// A K-major int8 operand, `rows` rows of k_pad bytes (k_pad a multiple of
+// 128, rows 16-byte aligned), read in boxes of 128 K bytes x 64 rows (rows
+// past the end read as zeros)
+inline cudaError_t s8_kmajor_map(CUtensorMap* map, const void* base, int k_pad, int rows) {
+  return sw128_tensor_map<2>(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base,
+                             {(cuuint64_t)k_pad, (cuuint64_t)rows}, {(cuuint64_t)k_pad},
+                             {128, 64});
 }
 
 // Launch a wgmma product kernel on `grid` in clusters of two blocks along

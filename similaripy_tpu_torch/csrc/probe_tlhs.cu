@@ -4,64 +4,64 @@
 // Replaces benchmarks/tpu_kernel_check.py::_probe_transposed_lhs (its
 // pallas_call body `kern`): one dot_general that contracts the lhs on its
 // dimension 0, int8 -> int32, bf16 -> f32 and f32 -> f32 at HIGHEST
-// precision. A and B are row-major as given (M and N contiguous) and are not
-// transposed on the host: that operand orientation is K2's (both of its
-// tiles are (u_pad, tc), contracted on the user axis).
+// precision. A and B are row-major as given (M and N contiguous): that
+// operand orientation is K2's (both of its tiles are (u_pad, tc),
+// contracted on the user axis), and so are the products P1 runs.
 //
 // What bounds it on an H100 SXM: operations at K2's block shape (K 200,960,
 // M = N = 2,048 or 4,096): 67 TFLOP/s of f32 FMA outside the tensor cores,
 // 989 TFLOP/s of bf16 and 1,979 TOP/s of int8 on the tensor cores.
 //
-// One block owns a 128 x 128 output block and walks K in slabs staged
-// through shared memory (no asynchronous loads, no double buffering, no
-// wgmma: a simple kernel that is right). Any M, N and K: slabs are
-// zero-filled past the edges and the stores are masked.
-//   f32   SIMT FMA, 8 x 8 outputs a thread (K1's product). There are no f32
-//         tensor cores, and TF32 would not be HIGHEST.
-//   bf16  mma.sync m16n8k16 with f32 accumulation. The slab is stored as it
-//         lies in memory, (k, m) rows, and ldmatrix.x4.trans hands each warp
-//         the transposed fragments of both operands: the "row" A fragment is
-//         (m, k), the "col" B fragment is k-contiguous per n, and both are
-//         the 8 x 8 transposes of the stored (k, m) and (k, n) blocks.
-//   int8  mma.sync m16n8k32 with int32 accumulation. ldmatrix has no .trans
-//         for 8-bit data (nor does wgmma: an 8-bit operand must be K-major),
-//         so the kernel transposes both operands itself on the way into
-//         shared memory: each thread reads a 4 (k) x 4 (m) byte block as four
-//         32-bit words, transposes it in registers with four pairs of byte
-//         permutes (PRMT, __byte_perm), and stores four k-contiguous words.
-//         Chosen over a byte-wise transposing store because it keeps the
-//         global reads and the shared stores 32 bits wide, and the
-//         fragments are then plain 32-bit shared loads. The shared rows
-//         are 17 words (16 + 1) apart, so the transposing stores of a warp
-//         fall in 32 distinct banks.
-//         Built with -DNO_PRMT_TRANSPOSE (by
-//         benchmarks/tlhs_transpose_cost.py only, never by the engine's
-//         library) the PRMT pass (transpose4x4, csrc/tensor_core.cuh) is
-//         compiled out: the results are wrong but
-//         every load and store is the same, so its time against this
-//         kernel's is what the transpose costs.
+// The product kernel a launch takes (TlhsKernel, counted by the wrapper):
+//   int8  tlhs_wgmma_s8_kernel, any shape: the K-major pass (kmajor.cuh)
+//         writes A and B as at[M, k_pad] and bt[N, k_pad] into the
+//         wrapper's workspace, then hopper.cuh's wgmma_block_s8 (wgmma
+//         m64n256k32 s8 -> s32, exact) runs over 128 x 256 blocks on TMA
+//         boxes of 128 K bytes x 64 rows, in cluster pairs of two column
+//         blocks that multicast A. The pass runs apart from the product so
+//         that its time (bytes) and the product's (operations) are read
+//         separately; the product on K-major tiles is what K2's int8 would
+//         cost if its tiles were written K-major.
+//   f32   rows of 16-byte multiples (M, N multiples of 4, 16-byte aligned
+//         operands): tlhs_simt_ring_kernel, K2's SIMT product
+//         (mn_products.cuh: mn_simt_block, a 3-slab cp.async ring, one
+//         in-order fmaf chain per output; TF32 would not be HIGHEST).
+//         Other rows: tlhs_f32_kernel, SIMT FMA, 8 x 8 outputs a thread,
+//         slabs staged by plain loads (the first port's kernel).
+//   bf16  M, N multiples of 8, 16-byte aligned operands:
+//         tlhs_wgmma_bf16_kernel, K2's wgmma product (mn_products.cuh:
+//         mn_wgmma_block, both operands MN-major on TMA boxes of 64 K rows).
+//         Other rows (TMA needs 16-byte row strides): tlhs_bf16_kernel,
+//         mma.sync m16n8k16 on slabs stored as they lie, (k, m) rows, whose
+//         fragments ldmatrix.x4.trans hands each warp transposed (the
+//         first port's).
+// Any M, N and K: past the edges operands read as zeros and the stores are
+// masked.
 
+#include "hopper.cuh"
+#include "kmajor.cuh"
+#include "mn_products.cuh"
 #include "tensor_core.cuh"
 
 namespace {
 
 enum ProbeMode { P_F32 = 0, P_BF16 = 1, P_INT8 = 2 };
 
+// the product kernels (benchmarks/probes.py: TLHS_KERNELS)
+enum TlhsKernel {
+  TK_SIMT = 0, TK_SIMT_RING = 1, TK_MMA_BF16 = 2, TK_WGMMA_BF16 = 3, TK_WGMMA_S8 = 4
+};
+
 constexpr int BM = 128;       // output rows per block
 constexpr int BN = 128;       // output columns per block
 constexpr int THREADS = 256;  // 8 warps
 
 // ---------------------------------------------------------------------------
-// f32: SIMT
+// f32 on rows that are not 16-byte multiples: SIMT
 // ---------------------------------------------------------------------------
 
 constexpr int FBK = 16;  // K per slab
 constexpr int FPAD = 4;
-
-// the row (or column) of micro-tile entry i: two 4-wide strips 64 apart
-__device__ __forceinline__ int strip(int t, int i) {
-  return i < 4 ? t * 4 + i : 64 + t * 4 + i - 4;
-}
 
 __global__ void __launch_bounds__(THREADS) tlhs_f32_kernel(
     const float* __restrict__ a, const float* __restrict__ b, int K, int M, int N,
@@ -145,7 +145,8 @@ __device__ __forceinline__ void store_frag(T* __restrict__ out, const T (&frag)[
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16, fragments by ldmatrix.trans
+// bf16 on rows that are not 16-byte multiples: mma.sync m16n8k16, fragments
+// by ldmatrix.trans
 // ---------------------------------------------------------------------------
 
 constexpr int HBK = 32;  // K per slab: two k16 steps
@@ -236,137 +237,194 @@ __global__ void __launch_bounds__(THREADS) tlhs_bf16_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// int8: mma.sync m16n8k32, operands transposed in registers (PRMT)
+// f32 and bf16 on 16-byte rows: K2's products (mn_products.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int IBK = 64;            // K per slab: two k32 steps
-constexpr int IROW = IBK / 4 + 1;  // words per shared row, one of them pad
-
-// Bytes c .. c + 3 of a row as one little-endian word: a 32-bit load where
-// the four lie inside the row and are aligned, byte by byte at a ragged
-// edge, zeros past it.
-__device__ __forceinline__ uint32_t load_word(const int8_t* __restrict__ row, int c, int C) {
-  const int8_t* p = row + c;
-  if (c + 4 <= C && (reinterpret_cast<uintptr_t>(p) & 3) == 0)
-    return *reinterpret_cast<const uint32_t*>(p);
-  uint32_t w = 0;
+__global__ void __launch_bounds__(MN_THREADS, 2) tlhs_simt_ring_kernel(
+    const float* __restrict__ a, const float* __restrict__ b, int K, int M, int N,
+    float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int m0 = blockIdx.y * MN_B, n0 = blockIdx.x * MN_B;
+  mn_simt_block<float>(smem, a + m0, b + n0, M, N, K, M - m0, N - n0,
+                       [&](const float (&acc)[8][8], int ty, int tx) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (c + j < C) w |= (uint32_t)(uint8_t)p[j] << (8 * j);
-  return w;
+                         for (int i = 0; i < 8; ++i) {
+                           const int r = m0 + strip(ty, i);
+                           if (r >= M) continue;
+#pragma unroll
+                           for (int j = 0; j < 8; ++j) {
+                             // 4-byte stores, as K2's epilogue: float4 stores timed slower
+                             const int c = n0 + strip(tx, j);
+                             if (c < N) out[(size_t)r * N + c] = acc[i][j];
+                           }
+                         }
+                       });
 }
 
-// Slab k0 .. k0 + IBK of a row-major (K x C) operand, columns c0 .. c0 + 128
-// of the output side, into s[c][k / 4] as k-contiguous words; each thread
-// transposes IBK / 32 4 x 4 blocks. In pass i, warp w takes the 4 x 8
-// blocks e = w + 8 i: k blocks (e % (IBK / 16)) * 4 + lane / 8 and c blocks
-// (e / (IBK / 16)) * 8 + lane % 8, so that each global read instruction
-// covers four 32-byte row segments and, with rows IROW = 1 (mod 8) words
-// apart, the shared stores of a warp hit 32 distinct banks.
-__device__ __forceinline__ void load_slab_s8(uint32_t (*s)[IROW], const int8_t* __restrict__ g,
-                                             int k0, int c0, int K, int C, int tid) {
-  const int warp = tid >> 5, lane = tid & 31;
+// ta: A as the 4D map (M, K, 1, 1), tb: B as (N, K, 1); warpgroup wg's
+// accumulator acc[4 j + 2 i + c] is row 64 wg + 16 warp + 8 i + g, column
+// 8 j + 2 tig + c of the block (hopper.cuh: wgmma_m64n128k16)
+__global__ void __launch_bounds__(WG_THREADS, 1) tlhs_wgmma_bf16_kernel(
+    const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb, int K, int M,
+    int N, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int m0 = blockIdx.y * MN_B, n0 = blockIdx.x * MN_B;
+  mn_wgmma_block<SPLIT_NONE>(
+      smem, &ta, &tb, K, m0, 0, n0, [&](const float (&acc)[64], int wg, int warp, int lane) {
+        const int g = lane >> 2, tig = lane & 3;
 #pragma unroll
-  for (int i = 0; i < IBK / 32; ++i) {
-    const int e = warp + 8 * i;
-    const int kb = (e % (IBK / 16)) * 4 + (lane >> 3);
-    const int cb = (e / (IBK / 16)) * 8 + (lane & 7);
-    const int gc = c0 + cb * 4;
-    uint32_t w[4];
+        for (int i = 0; i < 2; ++i) {
+          const int r = m0 + 64 * wg + 16 * warp + 8 * i + g;
+          if (r >= M) continue;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int gk = k0 + kb * 4 + q;
-      w[q] = (gk < K && gc < C) ? load_word(g + (size_t)gk * C, gc, C) : 0u;
-    }
-    transpose4x4(w);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[cb * 4 + j][kb] = w[j];
-  }
+          for (int j = 0; j < 16; ++j) {
+            const int c = n0 + 8 * j + 2 * tig;  // N is even: c + 1 < N with c
+            if (c < N) {  // 4-byte stores, as K2's epilogue: a float2 store timed slower
+              out[(size_t)r * N + c] = acc[4 * j + 2 * i];
+              out[(size_t)r * N + c + 1] = acc[4 * j + 2 * i + 1];
+            }
+          }
+        }
+      });
 }
 
-__global__ void __launch_bounds__(THREADS) tlhs_s8_kernel(
-    const int8_t* __restrict__ a, const int8_t* __restrict__ b, int K, int M, int N,
-    int* __restrict__ out) {
-  __shared__ __align__(16) uint32_t as[BM][IROW];
-  __shared__ __align__(16) uint32_t bs[BN][IROW];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int wm = (warp >> 2) * WM, wn = (warp & 3) * WN;
+// ---------------------------------------------------------------------------
+// int8: wgmma s8 on K-major operands (hopper.cuh: wgmma_block_s8)
+// ---------------------------------------------------------------------------
 
-  int acc[4][4][4];
+// ta, tb: at (M x k_pad) and bt (N x k_pad), the K-major pass's output, as
+// 2D maps (k_pad, rows) in boxes {128, 64}; k_pad / 128 slabs; the block's
+// rows m0 .. + 128, its columns n0 .. + 256
+__global__ void __launch_bounds__(WG_THREADS, 1) tlhs_wgmma_s8_kernel(
+    const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb, int k_pad,
+    int M, int N, int* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int m0 = blockIdx.y * MN_B, n0 = blockIdx.x * WG_S8_BN;
+  wgmma_block_s8(
+      smem, k_pad / WG_S8_BK,
+      [&](int s, unsigned char* st, uint64_t* bar, uint32_t rank) {
+        const int k0 = s * WG_S8_BK;
+        // A is the pair's: this block brings box `rank` to both
+        tma_load_2d_both(st + rank * BOX_BYTES, &ta, bar, k0, m0 + 64 * rank);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < WG_S8_BN / 64; ++j)
+          tma_load_2d(st + (2 + j) * BOX_BYTES, &tb, bar, k0, n0 + 64 * j);
+      },
+      [&](const int (&acc)[128], int wg, int warp, int lane) {
+        const int g = lane >> 2, tig = lane & 3;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+        for (int i = 0; i < 2; ++i) {
+          const int r = m0 + 64 * wg + 16 * warp + 8 * i + g;
+          if (r >= M) continue;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
+          for (int j = 0; j < WG_S8_BN / 8; ++j)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int col = n0 + 8 * j + 2 * tig + c;
+              if (col < N) out[(size_t)r * N + col] = acc[4 * j + 2 * i + c];
+            }
+        }
+      });
+}
 
-  for (int k0 = 0; k0 < K; k0 += IBK) {
-    load_slab_s8(as, a, k0, m0, K, M, tid);
-    load_slab_s8(bs, b, k0, n0, K, N, tid);
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < IBK / 4; ks += 8) {
-      // A (row): regs 0/1 = rows g / g + 8 at k = 4 tig .. +3, regs 2/3
-      // the same at k + 16; B (col): column g at k = 4 tig and 16 + 4 tig
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int r = wm + mi * 16 + g;
-        af[mi][0] = as[r][ks + tig];
-        af[mi][1] = as[r + 8][ks + tig];
-        af[mi][2] = as[r][ks + 4 + tig];
-        af[mi][3] = as[r + 8][ks + 4 + tig];
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int c = wn + ni * 8 + g;
-        bf[ni][0] = bs[c][ks + tig];
-        bf[ni][1] = bs[c][ks + 4 + tig];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
-    }
-    __syncthreads();
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// the s8 product on K-major operands; with k_pad = 0 no slab is loaded and
+// the maps stay unset
+cudaError_t launch_s8(const void* at, const void* bt, int k_pad, int M, int N, int* out,
+                      cudaStream_t stream) {
+  CUtensorMap ta{}, tb{};
+  if (k_pad > 0) {
+    cudaError_t err = s8_kmajor_map(&ta, at, k_pad, M);
+    if (err == cudaSuccess) err = s8_kmajor_map(&tb, bt, k_pad, N);
+    if (err != cudaSuccess) return err;
   }
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-      store_frag(out, acc[mi][ni], m0 + wm + mi * 16, n0 + wn + ni * 8, M, N, lane);
+  void* args[] = {&ta, &tb, &k_pad, &M, &N, &out};
+  // column blocks in pairs: an odd count's last pair has a block past N
+  const int gx = (N + WG_S8_BN - 1) / WG_S8_BN;
+  return launch_pairs(reinterpret_cast<const void*>(tlhs_wgmma_s8_kernel),
+                      dim3((gx + 1) / 2 * 2, (M + MN_B - 1) / MN_B), false, WG_S8_SMEM, stream,
+                      args);
 }
 
 }  // namespace
 
 extern "C" {
 
+// The K-major pass alone (kmajor.cuh: kmajor_launch): xt (R x k_pad) = x^T
+// zero-padded for x (K x R), trans = 1, or x zero-padded for x (R x K).
+int kmajor_pass(int trans, const void* x, int K, int R, void* xt, void* stream) {
+  return (int)kmajor_launch(trans != 0, x, K, R, xt, static_cast<cudaStream_t>(stream));
+}
+
+// out (M x N, int32) = at[:M] . bt[:N]^T, the s8 product alone on K-major
+// operands at (M x k_pad) and bt (N x k_pad), k_pad a multiple of 128, both
+// 16-byte aligned (the K-major pass's output).
+int probe_s8_product(const void* at, const void* bt, int k_pad, int M, int N, void* out,
+                     void* stream) {
+  if (k_pad < 0 || k_pad % WG_S8_BK != 0 || M <= 0 || N <= 0 || !aligned16(at) ||
+      !aligned16(bt) || (M + MN_B - 1) / MN_B > 65535)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_s8(at, bt, k_pad, M, N, static_cast<int*>(out),
+                        static_cast<cudaStream_t>(stream));
+}
+
 // out (M x N; f32 for f32 and bf16, int32 for int8) = a^T . b, with a
-// (K x M) and b (K x N) row-major in `mode` (0 f32, 1 bf16, 2 int8).
+// (K x M) and b (K x N) row-major in `mode` (0 f32, 1 bf16, 2 int8). For
+// int8, ws_a (M x k_pad) and ws_b (N x k_pad), k_pad = K rounded up to a
+// multiple of 128, receive the K-major pass's output (null when k_pad is
+// 0). `kind` receives the product kernel taken (TlhsKernel).
 int probe_tlhs(int mode, const void* a, const void* b, int K, int M, int N, void* out,
-               void* stream) {
-  if (K < 0 || M <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+               void* ws_a, void* ws_b, void* stream, int* kind) {
+  if (K < 0 || M <= 0 || N <= 0 || (M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool al = aligned16(a) && aligned16(b);
   switch (mode) {
     case P_F32:
-      tlhs_f32_kernel<<<grid, THREADS, 0, s>>>(static_cast<const float*>(a),
-                                               static_cast<const float*>(b), K, M, N,
-                                               static_cast<float*>(out));
+      if (al && M % 4 == 0 && N % 4 == 0) {
+        *kind = TK_SIMT_RING;
+        const size_t smem = mn_simt_smem<float>();
+        cudaError_t err = cudaFuncSetAttribute(
+            tlhs_simt_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        tlhs_simt_ring_kernel<<<dim3((N + MN_B - 1) / MN_B, (M + MN_B - 1) / MN_B), MN_THREADS,
+                                smem, s>>>(static_cast<const float*>(a),
+                                           static_cast<const float*>(b), K, M, N,
+                                           static_cast<float*>(out));
+        break;
+      }
+      *kind = TK_SIMT;
+      tlhs_f32_kernel<<<dim3((N + BN - 1) / BN, (M + BM - 1) / BM), THREADS, 0, s>>>(
+          static_cast<const float*>(a), static_cast<const float*>(b), K, M, N,
+          static_cast<float*>(out));
       break;
     case P_BF16:
-      tlhs_bf16_kernel<<<grid, THREADS, 0, s>>>(static_cast<const uint16_t*>(a),
-                                                static_cast<const uint16_t*>(b), K, M, N,
-                                                static_cast<float*>(out));
+      if (al && M % 8 == 0 && N % 8 == 0) {
+        *kind = TK_WGMMA_BF16;
+        CUtensorMap ta{}, tb{};
+        if (K > 0) {
+          const cudaError_t err = mn_wgmma_maps<SPLIT_NONE>(&ta, &tb, a, b, K, M, 1, N);
+          if (err != cudaSuccess) return (int)err;
+        }
+        void* args[] = {&ta, &tb, &K, &M, &N, &out};
+        const dim3 grid(((N + MN_B - 1) / MN_B + 1) / 2 * 2, (M + MN_B - 1) / MN_B);
+        return (int)launch_pairs(reinterpret_cast<const void*>(tlhs_wgmma_bf16_kernel), grid,
+                                 false, WgmmaRing<SPLIT_NONE>::SMEM, s, args);
+      }
+      *kind = TK_MMA_BF16;
+      tlhs_bf16_kernel<<<dim3((N + BN - 1) / BN, (M + BM - 1) / BM), THREADS, 0, s>>>(
+          static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(b), K, M, N,
+          static_cast<float*>(out));
       break;
-    case P_INT8:
-      tlhs_s8_kernel<<<grid, THREADS, 0, s>>>(static_cast<const int8_t*>(a),
-                                              static_cast<const int8_t*>(b), K, M, N,
-                                              static_cast<int*>(out));
-      break;
+    case P_INT8: {
+      *kind = TK_WGMMA_S8;
+      const int k_pad = (K + WG_S8_BK - 1) / WG_S8_BK * WG_S8_BK;
+      if (k_pad > 0 && !(ws_a && ws_b)) return (int)cudaErrorInvalidValue;
+      int err = kmajor_pass(1, a, K, M, ws_a, stream);
+      if (err == 0) err = kmajor_pass(1, b, K, N, ws_b, stream);
+      if (err != 0) return err;
+      return probe_s8_product(ws_a, ws_b, k_pad, M, N, out, stream);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -42,6 +42,8 @@
 //      row-side scores (sw x tc)
 //      and, for rows with rt < t, the col-side scores transposed (tc x sw)
 //      to scratch that the wrapper allocates.
+//      The f32 and bf16 products are csrc/mn_products.cuh's, which P1
+//      (probe_tlhs.cu) runs too with a store for its epilogue.
 //        f32        sym_simt_kernel: 128 x 128 blocks, SIMT FMA, 8 x 8
 //                   outputs a thread, 32 K rows a slab; the (K, tc) slab is
 //                   already the outer product's layout. Each output is one
@@ -102,6 +104,7 @@
 // a round trip through device memory.
 
 #include "hopper.cuh"
+#include "mn_products.cuh"
 #include "splus_epilogue.cuh"
 #include "tensor_core.cuh"
 
@@ -111,8 +114,7 @@ constexpr int BM = 128;       // output rows per block
 constexpr int BN = 128;       // output columns per block (f32, bf16)
 constexpr int S8_BN = 256;    // output columns per block (int8)
 constexpr int THREADS = 256;  // 8 warps
-constexpr int STAGES = 3;     // slabs in the shared-memory ring
-constexpr int FBK = 32;       // f32 / bf16: K rows per slab
+constexpr int STAGES = 3;     // slabs in the int8 shared-memory ring
 constexpr int IBK = 128;      // int8: K bytes per slab, four k32 steps
 constexpr int MERGE_THREADS = 512;
 constexpr int MAX_CHUNK = 16384;  // candidates sorted at once (128 KB of keys)
@@ -179,119 +181,36 @@ __device__ __forceinline__ void epilogue(const Epi& e, int sw, int tc, int n_liv
 }
 
 // ---------------------------------------------------------------------------
-// f32 and bf16: pipelined SIMT
+// f32: pipelined SIMT (mn_products.cuh, shared with P1)
 // ---------------------------------------------------------------------------
 
-// the row (or column) of micro-tile entry i: two 4-wide strips 64 apart
-__device__ __forceinline__ int strip(int t, int i) {
-  return i < 4 ? t * 4 + i : 64 + t * 4 + i - 4;
-}
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// four bf16 widened to f32 (exact: the bf16 bits are the f32's top half)
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-}
-
-// a thread's 8 values of one slab row: strips t * 4 and 64 + t * 4
-template <typename E>
-__device__ __forceinline__ void load_frag(float (&v)[8], const E* row, int t) {
-  const float4 lo = load4(row + t * 4), hi = load4(row + 64 + t * 4);
-  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-}
-
-template <typename E>
-constexpr size_t simt_smem() { return 2ull * STAGES * FBK * BM * sizeof(E); }
-
+// The block's anchor rows are columns m0 % tc .. + 128 of anchor tile m0 /
+// tc, its tile columns n0 .. + 128 of d.
 template <typename E>
 __global__ void __launch_bounds__(THREADS, 2) sym_simt_kernel(
     const E* __restrict__ a, const E* __restrict__ d, int sw, int K, int tc, Epi e) {
-  constexpr int ROW_CHUNKS = BM * (int)sizeof(E) / 16;  // 16-byte chunks in a slab row
-  constexpr int ROW_STEP = THREADS / ROW_CHUNKS;        // rows between a thread's copies
-  constexpr int COPIES = FBK / ROW_STEP;                // per operand, thread and slab
-  constexpr int STAGE = FBK * BM;                       // elements per operand and slab
   extern __shared__ __align__(16) unsigned char smem[];
-  E* as = reinterpret_cast<E*>(smem);  // [STAGES][FBK][BM]
-  E* ds = as + STAGES * STAGE;         // [STAGES][FBK][BN]
-
   const int n_live = live_rows(e.pvec, sw, tc);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   if (m0 >= n_live) return;  // below the band: the merge passes the carry
   const int n_col = col_rows(e.pvec, sw, tc);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-
-  // this thread's copies: rows crow + i * ROW_STEP of a slab, 16 bytes at
-  // ccol; the block's anchor rows are columns m0 % tc .. + 128 of anchor
-  // tile m0 / tc
-  const int crow = tid / ROW_CHUNKS, ccol = (tid % ROW_CHUNKS) * (16 / (int)sizeof(E));
-  const size_t first = (size_t)crow * tc + ccol;
-  const E* ag = a + (size_t)(m0 / tc) * K * tc + m0 % tc + first;
-  const E* dg = d + n0 + first;
-  const int n_slabs = (K + FBK - 1) / FBK;
-
-  auto fetch = [&](int s) {
-    if (s < n_slabs) {
-      E* sa = as + (s % STAGES) * STAGE + crow * BM + ccol;
-      E* sd = ds + (s % STAGES) * STAGE + crow * BN + ccol;
+  const int c0 = m0 % tc;
+  mn_simt_block<E>(smem, a + (size_t)(m0 / tc) * K * tc + c0, d + n0, tc, tc, K, tc - c0,
+                   tc - n0, [&](const float (&acc)[8][8], int ty, int tx) {
+                     int rows[8], cols[8];
 #pragma unroll
-      for (int i = 0; i < COPIES; ++i) {
-        const bool full = s * FBK + crow + i * ROW_STEP < K;
-        const size_t off = (size_t)(s * FBK + i * ROW_STEP) * tc;
-        cp_async16(sa + i * ROW_STEP * BM, full ? ag + off : a, full);
-        cp_async16(sd + i * ROW_STEP * BN, full ? dg + off : d, full);
-      }
-    }
-    cp_async_commit();  // an empty group past the end keeps the count
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) fetch(s);
-  for (int s = 0; s < n_slabs; ++s) {
-    cp_async_wait<STAGES - 2>();  // slab s is in
-    __syncthreads();              // ... for every thread, and slab s - 1 is done with
-    fetch(s + STAGES - 1);        // into slab s - 1's place
-    const E* sa = as + (s % STAGES) * STAGE;
-    const E* sd = ds + (s % STAGES) * STAGE;
-    float av[2][8], bv[2][8];
-    load_frag(av[0], sa, ty);
-    load_frag(bv[0], sd, tx);
-#pragma unroll
-    for (int kk = 0; kk < FBK; ++kk) {
-      if (kk + 1 < FBK) {  // the next row's values load while this row's FMAs run
-        load_frag(av[(kk + 1) & 1], sa + (kk + 1) * BM, ty);
-        load_frag(bv[(kk + 1) & 1], sd + (kk + 1) * BN, tx);
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[kk & 1][i], bv[kk & 1][j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-
-  int rows[8], cols[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    rows[i] = m0 + strip(ty, i);
-    cols[i] = n0 + strip(tx, i);
-  }
-  epilogue(e, sw, tc, n_live, n_col, rows, cols, [&](int i, int j) { return acc[i][j]; });
+                     for (int i = 0; i < 8; ++i) {
+                       rows[i] = m0 + strip(ty, i);
+                       cols[i] = n0 + strip(tx, i);
+                     }
+                     epilogue(e, sw, tc, n_live, n_col, rows, cols,
+                              [&](int i, int j) { return acc[i][j]; });
+                   });
 }
 
 // ---------------------------------------------------------------------------
-// bf16 and the split-bf16x3 mode: wgmma fed by TMA (hopper.cuh)
+// bf16 and the split-bf16x3 mode: wgmma fed by TMA (mn_products.cuh, shared
+// with P1)
 // ---------------------------------------------------------------------------
 
 // One 128 x 128 block: ta is the anchors as the 4D map (tc, K, halves, gt),
@@ -306,28 +225,13 @@ template <int SPLIT>
 __global__ void __launch_bounds__(WG_THREADS, 1) sym_wgmma_kernel(
     const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap td, int sw,
     int K, int tc, Epi e) {
-  using R = WgmmaRing<SPLIT>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_live = live_rows(e.pvec, sw, tc);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   if (m0 >= n_live) return;  // below the band: the merge passes the carry
   const int n_col = col_rows(e.pvec, sw, tc);
-  const int tile = m0 / tc, c0 = m0 % tc;
-  wgmma_block<SPLIT, true>(
-      smem, (K + WG_BK - 1) / WG_BK,
-      [&](int s, unsigned char* st, uint64_t* bar, uint32_t rank) {
-        const int k0 = s * WG_BK;
-#pragma unroll
-        for (int h = 0; h < R::A_HALVES; ++h) {
-          // the anchors are the pair's: this block brings box `rank` to both
-          tma_load_4d_both(st + h * HALF_BYTES + rank * BOX_BYTES, &ta, bar, c0 + 64 * rank, k0,
-                           h, tile);
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            tma_load_3d(st + (R::A_HALVES + h) * HALF_BYTES + j * BOX_BYTES, &td, bar,
-                        n0 + 64 * j, k0, h);
-        }
-      },
+  mn_wgmma_block<SPLIT>(
+      smem, &ta, &td, K, m0 % tc, m0 / tc, n0,
       [&](const float (&acc)[64], int wg, int warp, int lane) {
         // acc[4 j + 2 i + c] is row 8 i + g, column 8 j + 2 tig + c of the
         // warp's 16 x 128 (hopper.cuh: wgmma_m64n128k16)
@@ -610,11 +514,7 @@ cudaError_t launch_wgmma(const void* a, const void* d, int sw, int K, int tc, co
                          cudaStream_t stream) {
   CUtensorMap ta{}, td{};
   if (K > 0) {
-    const cuuint64_t h = SPLIT == SPLIT_BOTH ? 2 : 1, k = K, row = 2 * (cuuint64_t)tc;
-    cudaError_t err = bf16_tensor_map<4>(&ta, a, {(cuuint64_t)tc, k, h, (cuuint64_t)(sw / tc)},
-                                         {row, row * k, row * k * h}, {64, 64, 1, 1});
-    if (err == cudaSuccess)
-      err = bf16_tensor_map<3>(&td, d, {(cuuint64_t)tc, k, h}, {row, row * k}, {64, 64, 1});
+    const cudaError_t err = mn_wgmma_maps<SPLIT>(&ta, &td, a, d, K, tc, sw / tc, tc);
     if (err != cudaSuccess) return err;
   }
   Epi ep = e;
@@ -667,7 +567,7 @@ int sym_product(int mode, const void* a, const void* d, int sw, int K, int tc,
   switch (mode) {
     case MODE_F32:
       *kind = PK_SIMT;
-      return (int)launch_product(sym_simt_kernel<float>, simt_smem<float>(), BN, sw, tc, s,
+      return (int)launch_product(sym_simt_kernel<float>, mn_simt_smem<float>(), BN, sw, tc, s,
                                  static_cast<const float*>(a), static_cast<const float*>(d),
                                  sw, K, tc, e);
     case MODE_BF16:
@@ -696,7 +596,7 @@ int sym_product_attrs(int mode, int* out) {
   switch (mode) {
     case MODE_F32:
       kern = reinterpret_cast<const void*>(sym_simt_kernel<float>);
-      smem = simt_smem<float>();
+      smem = mn_simt_smem<float>();
       out[4] = PK_SIMT;
       break;
     case MODE_BF16:

@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` (K1 ``tile_topk.cu``, K2 ``sym_topk.cu``, K3
 ``panel_topk.cu``, K4 ``gather.cu``, K5 ``scatter.cu``, and the hardware
 probes P1 ``probe_tlhs.cu`` and P2 ``probe_int_mma.cu``, with the shared
-``csrc/*.cuh`` headers, ``hopper.cuh``'s wgmma and TMA primitives among
-them) is compiled by
+``csrc/*.cuh`` headers, ``hopper.cuh``'s wgmma and TMA primitives,
+``mn_products.cuh``'s products of K2 and P1 and the probes' K-major pass
+``kmajor.cuh`` among them) is compiled by
 ``nvcc`` into one shared library with a plain C interface, loaded with
 ``ctypes``. No PyTorch header takes part, so a build takes seconds, not
 minutes; the sources compile in parallel, one ``nvcc`` each, and are then
@@ -119,9 +120,13 @@ def load() -> ctypes.CDLL:
         lib.panel_topk_rows.restype = i
         lib.gather_rows.argtypes = [p, ctypes.c_longlong, ctypes.c_longlong, p, i, p, p]
         lib.gather_rows.restype = i
-        lib.probe_tlhs.argtypes = [i, p, p, i, i, i, p, p]
+        lib.probe_tlhs.argtypes = [i, p, p, i, i, i, p, p, p, p, p]
         lib.probe_tlhs.restype = i
-        lib.probe_int_mma.argtypes = [i, p, p, i, i, i, i, p, p]
+        lib.probe_s8_product.argtypes = [p, p, i, i, i, p, p]
+        lib.probe_s8_product.restype = i
+        lib.kmajor_pass.argtypes = [i, p, i, i, p, p]
+        lib.kmajor_pass.restype = i
+        lib.probe_int_mma.argtypes = [i, p, p, i, i, i, i, p, p, p, p, p]
         lib.probe_int_mma.restype = i
         lib.tile_error_string.argtypes = [i]
         lib.tile_error_string.restype = ctypes.c_char_p
