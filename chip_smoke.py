@@ -174,11 +174,34 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
              compare_benchmarks, and bench_gate from no earlier report
              (bootstrap); assemble on the headline's (T, k) buffers, native
              against plain, in COO and CSR: bit-equal, both times printed
+  7 example  the example pipeline as a user runs it, in this process, at full
+             width on the tracked data:
+             examples.item_item_recommender.main(["--data-path", DATA,
+             "--model", "rp3beta", "--device", "cuda"]) with the counts set
+             to 0 just before and read just after: leave-2-out split, BM25,
+             rp3beta over all 84,432 items (the symmetric route, f32, its
+             asymmetric col side; K2 and K5) and the scoring of every user
+             with filter_cols=train (the general route with per-row masks,
+             every K1 launch on the f32 SIMT product; K1 and K5), each
+             call's route, plan, launches and wall, each stage's seconds
+             (load, split, bm25, model, scoring, evaluation); 64 rows of the
+             model against a float64 rp3beta oracle and 64 users' scores
+             against a float64 oracle (rtol 1e-4), no recommended item seen
+             in train over all users, NDCG@10 and recall@10 in (0, 1]; the
+             build's plan and launches equal scaling_anatomy's N=1 row at its
+             geometry. Then benchmarks.scaling_anatomy at ML-32M geometry: its
+             N=1 counts equal phase main's int8 and f32 builds, its N=2 int8
+             counts each gloo rank of phase mesh, the modeled seconds beside
+             the measured sweeps; and benchmarks.bench_n2 in subprocesses:
+             asked for one card more than the host has (--n 2 on one card)
+             it exits 3 ("need 2 cards, have 1"), its CPU smoke on two gloo
+             ranks exits 0, exact
 
 then the `kernels` line (K1 and K2 once more as "tile_topk:split-bf16x3"
 and "sym_topk:split-bf16x3": their launches in the 'high' calls, their
-split times) and, last, {"ok": true, "device": {...}}. Any failed
-check raises and the script exits non-zero; without a card it exits non-zero
+split times; the launches of phases main, mesh and example) and, last,
+{"ok": true, "device": {...}}. Any failed check raises and the script
+exits non-zero; without a card it exits non-zero
 before printing anything. It writes nothing but the kernel and native
 builds, the kernel stamp and the synthetic_small cache (all in
 similaripy_tpu_torch/_build/) and temporary directories.
@@ -569,6 +592,30 @@ def _oracle_rows(m1, m2, rows, k, *, l2, filt=None):
     return [r[np.isfinite(r)] for r in top]
 
 
+def _rp3beta_oracle(m, alpha, beta):
+    """float64 (m1, m2) whose product is rp3beta(m, alpha=alpha, beta=beta)
+    as the reference builds it (reference: similarity.py:477-503): m
+    (items x users) and its transpose, each l1-row-normalised and raised to
+    alpha, and m2's columns divided by their popularity (m.T's column
+    sums) to the power beta. ``_oracle_rows(m1, m2, rows, k, l2=False)``
+    is then the float64 top-k of those rows."""
+    import scipy.sparse as sp
+
+    def l1_pow(x):
+        x = sp.csr_array(x, dtype=np.float64)
+        x.sum_duplicates()
+        r = np.asarray(np.abs(x).sum(axis=1)).ravel()
+        x.data = np.power(x.data / np.repeat(np.where(r > 0, r, 1.0), np.diff(x.indptr)),
+                          alpha)
+        return x
+
+    m2 = sp.csr_array(m, dtype=np.float64).T.tocsr()
+    pop = np.asarray(m2.sum(axis=0)).ravel()
+    with np.errstate(divide="ignore"):
+        depop = np.where(pop > 0, np.power(pop, -beta), 0.0)
+    return l1_pow(m), sp.csr_array(l1_pow(m2) @ sp.diags_array(depop))
+
+
 def _check_oracle(name, got, rows, expect):
     got = got.tocsr()
     for r, e in zip(rows, expect):
@@ -915,7 +962,7 @@ def phase_main(torch, sim, counters, ex, urm, dev):
                 raise AssertionError(f"{name}: user {users[r]} got a seen item")
     state = {"urm_n": urm_n, "W": W, "users": users, "items": items, "pop_t": pop_t,
              "t8k": t8k, "plans": {k: c["plan"] for k, c in calls.items()},
-             "recs_raw": recs_raw, "G": G, "W8": W8}
+             "recs_raw": recs_raw, "G": G, "W8": W8, "calls": calls}
     return {"bm25_seconds": bm25_s, "calls": list(calls.values()), "checks": checks,
             "fold": fold, "compaction": compaction}, state
 
@@ -2164,6 +2211,236 @@ def phase_bench(torch, counters, ex, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the example pipeline at ML-32M width, the scaling tools
+# ---------------------------------------------------------------------------
+
+# the example's calls that reach the engine, with the route each takes on
+# the tracked data: the rp3beta build over all items and the filtered
+# scoring of every user
+EXAMPLE_ROUTES = {"rp3beta": "symmetric", "dot_product": "general"}
+
+
+class _Recorder:
+    """Stands in for the package inside the example module: the engine
+    calls pass through, and each one's route, plan, launches (the counts'
+    differences across the call), plain calls, native calls and wall are
+    recorded in `calls`."""
+
+    def __init__(self, torch, sim, counters, ex, dev, calls):
+        self._args = (torch, sim, counters, ex, dev)
+        self.calls = calls
+
+    def __getattr__(self, name):
+        torch, sim, counters, ex, dev = self._args
+        fn = getattr(sim, name)
+        if name not in EXAMPLE_ROUTES:
+            return fn
+
+        def call(*args, **kwargs):
+            from similaripy_tpu_torch import native
+
+            def counts():
+                return ({k: c.kernel_launches for k, c in counters.items()},
+                        {k: c.plain_calls for k, c in counters.items()},
+                        {k: dict(c.product_launches) for k, c in counters.items()
+                         if hasattr(c, "product_launches")}, native.native_calls)
+
+            before = counts()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            _sync(torch, dev)
+            wall = time.perf_counter() - t
+            after = counts()
+            launches = {k: after[0][k] - before[0][k] for k in counters}
+            plain = {k: after[1][k] - before[1][k] for k in counters}
+            products = {k: {n: v - before[2][k][n] for n, v in after[2][k].items()}
+                        for k in after[2]}
+            route = EXAMPLE_ROUTES[name]
+            if ex.last_route != route:
+                raise AssertionError(f"example {name}: took the {ex.last_route} route")
+            if any(plain.values()) or after[3] == before[3]:
+                raise AssertionError(f"example {name}: plain calls {plain}, native calls "
+                                     f"{after[3] - before[3]}")
+            _check_plan_launches(f"example {name}", route, launches, ex.last_plan)
+            self.calls.append({"call": name, "route": route, "seconds": wall,
+                               "launches": launches, "product_kernels": products,
+                               "nnz": int(out.nnz), "plan": dict(ex.last_plan)})
+            return out
+        return call
+
+
+def _example_anatomy(calls, mesh, urm):
+    """scaling_anatomy's table at ML-32M geometry against the launches the
+    card made: its N=1 rows equal phase main's int8 and f32 builds, its
+    N=2 int8 row each gloo rank of phase mesh (both meshes); the modeled
+    N=1 seconds beside the measured sweeps."""
+    from similaripy_tpu_torch.benchmarks import scaling_anatomy as sa
+
+    C, U = ML32M_SHAPE[1], ML32M_SHAPE[0]
+    out = {}
+    for dtype, key in (("int8", "cosine_int8"), ("float32", "cosine")):
+        table = sa.anatomy_table(C, U, int(urm.nnz), n_list=(1, 2), compute_dtype=dtype)
+        n1, n2 = table["mesh_sizes"]
+        got = calls[key]["launches"]
+        if [got["sym_topk"]] != n1["k2_blocks"] or [got["scatter"]] != n1["k5_scatters"]:
+            raise AssertionError(f"anatomy {dtype} N=1: K2 {n1['k2_blocks']}, K5 "
+                                 f"{n1['k5_scatters']}; phase main launched {got}")
+        row = {"plan": table["plan"], "N1": {"k2": n1["k2_blocks"], "k5": n1["k5_scatters"]},
+               "N2": {"k2": n2["k2_blocks"], "k5": n2["k5_scatters"]},
+               "modeled_s": {"N1": n1["modeled_seconds"], "N2": n2["modeled_seconds"]},
+               "measured_sweep_s": calls[key]["plan"]["stages"]["sweep_s"],
+               "measured_wall_s": calls[key]["seconds"]}
+        if dtype == "int8":
+            for shape in MESH_SHAPES_2:
+                tag = f"{shape[0]}x{shape[1]}"
+                ranks = mesh["gloo_2"]["ranks"][f"{tag}_cosine_int8"]["launches"]
+                k2, k5 = [r["sym_topk"] for r in ranks], [r["scatter"] for r in ranks]
+                if k2 != n2["k2_blocks"] or k5 != n2["k5_scatters"]:
+                    raise AssertionError(f"anatomy int8 N=2: K2 {n2['k2_blocks']}, K5 "
+                                         f"{n2['k5_scatters']}; mesh {tag} ranks K2 {k2}, "
+                                         f"K5 {k5}")
+                row[f"mesh_{tag}"] = {"k2": k2, "k5": k5}
+        out[dtype] = row
+    return out
+
+
+def _example_bench_n2(torch):
+    """bench_n2 as a user runs it: asked for one card more than the host
+    has (2 on this one card), it exits 3 with its message; its CPU smoke
+    on two gloo ranks exits 0, exact."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    have = torch.cuda.device_count()
+    cmd = [sys.executable, "-m", "similaripy_tpu_torch.benchmarks.bench_n2"]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="similaripy_bench_n2_") as tmp:
+        for key, args, want in (
+            ("cards", ["--n", str(have + 1)], 3),
+            ("cpu_smoke", ["--n", "2", "--smoke", "--device", "cpu", "--rounds", "1"], 0),
+        ):
+            report = os.path.join(tmp, f"{key}.json")
+            t = time.perf_counter()
+            proc = subprocess.run(cmd + args + ["--out", report], cwd=HERE, env=env,
+                                  capture_output=True, text=True, timeout=600)
+            entry = {"args": args, "exit": proc.returncode,
+                     "seconds": time.perf_counter() - t}
+            if proc.returncode != want or (
+                    want == 3 and f"need {have + 1} cards, have {have}" not in proc.stdout):
+                raise AssertionError(f"bench_n2 {' '.join(args)}: exit {proc.returncode}, "
+                                     f"expected {want}\n{proc.stdout[-2000:]}"
+                                     f"{proc.stderr[-2000:]}")
+            if want == 3:
+                entry["message"] = proc.stdout.strip().splitlines()[-1]
+            else:
+                with open(report) as f:
+                    rep = json.load(f)
+                if not rep["check_sum_ok"]:
+                    raise AssertionError(f"bench_n2 {' '.join(args)}: {rep}")
+                entry.update(check_sum_ok=True, backend=rep["backend"], nnz=rep["nnz"],
+                             best_s=rep["best_s"])
+            out[key] = entry
+    return out
+
+
+def phase_example(torch, sim, counters, ex, dev, main_path_calls, mesh, urm):
+    """The example pipeline as a user runs it, in this process, on the
+    tracked data at full width: item_item_recommender.main with --model
+    rp3beta on the card, the counts set to 0 just before and read just
+    after; the rp3beta build and the scoring of every user checked against
+    float64 oracles, no seen item recommended over all users, NDCG@10 and
+    recall@10 in (0, 1]. Then the scaling anatomy against phases main and
+    mesh, and bench_n2 on this one card and on the CPU."""
+    import scipy.sparse as sp
+
+    from similaripy_tpu_torch import native
+    from similaripy_tpu_torch.examples import item_item_recommender as example
+
+    sim.clear_caches()  # a user's fresh process: no other matrix's uploads
+    torch.cuda.empty_cache()
+    calls = []
+    example.sim = _Recorder(torch, sim, counters, ex, dev, calls)
+    for c in counters.values():
+        c.reset_counts()
+    native.reset_counts()
+    t = time.perf_counter()
+    try:
+        rc, stdout, _ = _captured(example.main, ["--data-path", DATA, "--model", "rp3beta",
+                                                 "--device", "cuda"])
+    finally:
+        example.sim = sim
+    wall = time.perf_counter() - t
+    launches = {k: c.kernel_launches for k, c in counters.items()}
+    sys.stderr.write(stdout)
+    if rc != 0:
+        raise AssertionError(f"example main exited {rc}")
+    run = example.last_run
+    by_name = {c["call"]: c for c in calls}
+    if sorted(by_name) != sorted(EXAMPLE_ROUTES) or len(calls) != 2:
+        raise AssertionError(f"example calls: {[c['call'] for c in calls]}")
+    build, score = by_name["rp3beta"], by_name["dot_product"]
+    if build["plan"]["compute_dtype"] != "float32" or not build["plan"]["asym"]:
+        raise AssertionError(f"example rp3beta plan: {build['plan']}")
+    # every K1 launch of the scoring call on the f32 SIMT product
+    simt = score["product_kernels"]["tile_topk"]["simt"]
+    if simt != score["launches"]["tile_topk"]:
+        raise AssertionError(f"example scoring: K1 {score['launches']['tile_topk']}, "
+                             f"products {score['product_kernels']['tile_topk']}")
+    if any(launches[k] != sum(c["launches"][k] for c in calls) for k in launches):
+        raise AssertionError(f"example: {launches} launched outside its two calls")
+
+    checks = {}
+    t = time.perf_counter()
+    train, train_w, W, recs = run["train"], run["train_w"], run["W"], run["recs"]
+    rng = np.random.default_rng(2)
+    sample = np.sort(rng.choice(W.shape[0], N_ORACLE_ROWS, replace=False))
+    m1, m2 = _rp3beta_oracle(train.T, 1.0, 0.6)
+    _check_oracle("example rp3beta", W, sample, _oracle_rows(m1, m2, sample, 100, l2=False))
+    del m1, m2
+    usample = np.sort(rng.choice(recs.shape[0], N_ORACLE_ROWS, replace=False))
+    _check_oracle("example scoring", recs, usample,
+                  _oracle_rows(train_w, W.T, usample, 10, l2=False, filt=train))
+    checks["oracle_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    recs = recs.tocsr()
+    picked = sp.csr_array((np.ones(recs.nnz), recs.indices, recs.indptr), shape=recs.shape)
+    hits = picked.multiply(sp.csr_array(train, dtype=bool)).count_nonzero()
+    if hits:
+        raise AssertionError(f"example scoring: {hits} recommended items were seen in train")
+    checks["seen_s"] = time.perf_counter() - t
+    for name in ("ndcg", "recall"):
+        if not (np.isfinite(run[name]) and 0.0 < run[name] <= 1.0):
+            raise AssertionError(f"example {name}@10 = {run[name]}")
+
+    t = time.perf_counter()
+    anatomy = _example_anatomy(main_path_calls, mesh, urm)
+    # the table at the example's own geometry predicts its build's plan
+    from similaripy_tpu_torch.benchmarks.scaling_anatomy import anatomy_table
+
+    table = anatomy_table(train.shape[1], train.shape[0], int(train.nnz), n_list=(1,),
+                          compute_dtype="float32")
+    plan, n1 = table["plan"], table["mesh_sizes"][0]
+    got = (build["plan"]["tc"], build["plan"]["gt"], build["plan"]["n_tiles"],
+           build["launches"]["sym_topk"], build["launches"]["scatter"])
+    want = (plan["tc"], plan["gt"], plan["n_tiles"], n1["k2_blocks"][0], n1["k5_scatters"][0])
+    if got != want:
+        raise AssertionError(f"example rp3beta: plan and launches {got}, anatomy {want}")
+    anatomy["example_rp3beta"] = {"plan": plan, "modeled_s": n1["modeled_seconds"],
+                                  "measured_sweep_s": build["plan"]["stages"]["sweep_s"]}
+    anatomy_s = time.perf_counter() - t
+    bench_n2 = _example_bench_n2(torch)
+    return {
+        "wall_s": wall, "stages_s": run["seconds"],
+        "urm": {"shape": list(run["urm"].shape), "nnz": int(run["urm"].nnz)},
+        "train_nnz": int(train.nnz), "held_out_nnz": int(run["test"].nnz),
+        "calls": calls, "launches": launches, "ndcg_at_10": run["ndcg"],
+        "recall_at_10": run["recall"], "users_scored": int(recs.shape[0]),
+        "checks": checks, "anatomy": anatomy, "anatomy_s": anatomy_s, "bench_n2": bench_n2,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -2244,9 +2521,14 @@ def main() -> int:
     bench_out = phase_bench(torch, counters, ex, dev)
     emit({"phase": "bench", **bench_out, "seconds": time.perf_counter() - t0})
 
-    mesh_calls = mesh["nccl_1"]["calls"] + [
-        {"launches": r} for e in mesh["gloo_2"]["ranks"].values() for r in e["launches"]]
-    launches = {k: sum(c["launches"][k] for c in main_path["calls"] + mesh_calls)
+    t0 = time.perf_counter()
+    example = phase_example(torch, sim, counters, ex, dev, state["calls"], mesh, urm)
+    emit({"phase": "example", **example, "seconds": time.perf_counter() - t0})
+
+    path_calls = mesh["nccl_1"]["calls"] + [
+        {"launches": r} for e in mesh["gloo_2"]["ranks"].values() for r in e["launches"]
+    ] + example["calls"]
+    launches = {k: sum(c["launches"][k] for c in main_path["calls"] + path_calls)
                 for k in KERNELS if k not in PROBE_KERNELS}
     launches.update(probes["path"]["launches"])
     for name, base in SPLIT_KERNELS.items():
