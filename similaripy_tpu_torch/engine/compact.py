@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from ..ops.csr import csc_quantized
-from . import gather, panel_topk, scatter
+from . import gather, panel_topk, scatter, spans
 from .params import PVEC_LEN, build_pvec
 from .preprocess import Preprocessed, _fingerprint
 from .tile_topk import full_f32_matmul
@@ -443,9 +443,11 @@ def execute_compact(
     )
     cached = ex._cache_get(m1_key)
     if cached is None:
-        ex._evict_stale("compact_m1", pre.fp1, m1_key)
-        cached = stage_panels(pre, compute_dtype, u_pad=u_pad, device=device, densify=densify)
-        ex._cache_put(m1_key, cached)
+        with spans.span("stage") as stage:
+            ex._evict_stale("compact_m1", pre.fp1, m1_key)
+            cached = stage_panels(pre, compute_dtype, u_pad=u_pad, device=device,
+                                  densify=densify)
+            ex._stage_put(stage, m1_key, cached)
     dev_buckets, rank_of = cached
 
     # ---- group sizing under the device budget (compact.py:541) ----
@@ -478,10 +480,11 @@ def execute_compact(
     )
     cached = ex._cache_get(m2_key)
     if cached is None:
-        ex._evict_stale("compact_m2", pre.fp2, m2_key)
-        cached = stage_tiles(pre, compute_dtype, rank_of, tc=tc, n_tiles=n_tiles,
-                             u_pad=u_pad, device=device)
-        ex._cache_put(m2_key, cached)
+        with spans.span("stage") as stage:
+            ex._evict_stale("compact_m2", pre.fp2, m2_key)
+            cached = stage_tiles(pre, compute_dtype, rank_of, tc=tc, n_tiles=n_tiles,
+                                 u_pad=u_pad, device=device)
+            ex._stage_put(stage, m2_key, cached)
     (t_rows, t_cols, t_vals, yvecs), col_map = cached
 
     ex.last_plan.clear()

@@ -50,10 +50,11 @@ import torch
 from ..ops.csr import csc_quantized
 from ..parallel import mesh as pmesh
 from ..utils.device import hbm_budget_bytes, resolve_device
-from . import scatter, tile_topk
+from . import scatter, spans, tile_topk
 from .params import PVEC_LEN, SPlusParams, build_pvec
 from .preprocess import (
-    Preprocessed, _fingerprint, clear_prep_cache, int8_values, prep_cache_len,
+    Preprocessed, _fingerprint, clear_prep_cache, int8_values, prep_cache_counts,
+    prep_cache_len,
 )
 from .tile_topk import split_bf16x3_parts
 from .scatter import densify
@@ -626,8 +627,10 @@ def execute(
     A device out-of-memory error drops the device cache and replans the
     call once from scratch with a 25% smaller budget
     (executor.py:1245-1306). Only ``torch.cuda.OutOfMemoryError`` triggers
-    it. `_tile_fn="plain"` runs the kernels' plain PyTorch versions even
-    on a card (for comparisons only)."""
+    it; ``cache_info()["oom_retries"]`` counts the retries. `_tile_fn="plain"`
+    runs the kernels' plain PyTorch versions even on a card (for comparisons
+    only)."""
+    global _oom_retries
     device = resolve_device(device)
     if budget_bytes is None:
         budget_bytes = default_budget(device)
@@ -638,6 +641,7 @@ def execute(
     try:
         return _execute_impl(pre, params, budget_bytes=budget_bytes, **kwargs)
     except torch.cuda.OutOfMemoryError:
+        _oom_retries += 1
         retry_budget = int(budget_bytes * 0.75)
         print(
             f"# similaripy_tpu_torch: device OOM — replanning once with a "
@@ -844,35 +848,36 @@ def execute_grouped(
     )
     cached = _cache_get(m2_key)
     if cached is None:
-        _evict_stale("m2", pre.fp2, m2_key)
-        m2_csc = csc_quantized(m2, pre.qscale2 if int8_mode else None)
-        if fold_M is not None:
-            m2_csc = _apply_fold(m2_csc, fold_M, C)
-        if f32x3:
-            m2_csc = canonical(m2_csc)
-        tile_lists, col_map = balance_columns(np.diff(m2_csc.indptr), n_tiles, tc)
-        own_lists = tile_lists[base:base + n_own]
-        coo = _stack_m2_tiles_balanced(m2_csc, own_lists, tc, u_pad)
-        if d_split == "split":  # the [hi; lo] stacks, 2 u_pad deep
-            coo = split_coo(*coo, u_pad, axis=0)
-        m2_coo = tuple(dev(a) for a in coo)
+        with spans.span("stage") as stage:
+            _evict_stale("m2", pre.fp2, m2_key)
+            m2_csc = csc_quantized(m2, pre.qscale2 if int8_mode else None)
+            if fold_M is not None:
+                m2_csc = _apply_fold(m2_csc, fold_M, C)
+            if f32x3:
+                m2_csc = canonical(m2_csc)
+            tile_lists, col_map = balance_columns(np.diff(m2_csc.indptr), n_tiles, tc)
+            own_lists = tile_lists[base:base + n_own]
+            coo = _stack_m2_tiles_balanced(m2_csc, own_lists, tc, u_pad)
+            if d_split == "split":  # the [hi; lo] stacks, 2 u_pad deep
+                coo = split_coo(*coo, u_pad, axis=0)
+            m2_coo = tuple(dev(a) for a in coo)
 
-        def own_tiles(v):
-            return dev(v.reshape(n_tiles, -1)[base:base + n_own])
+            def own_tiles(v):
+                return dev(v.reshape(n_tiles, -1)[base:base + n_own])
 
-        tiles_common = {
-            name: own_tiles(_vec_by_map(v, col_map, C))
-            for name, v in (("y_t", pre.Yt), ("y_c", pre.Yc), ("y_d", pre.Yd))
-        }
-        tiles_common["col_offset"] = own_tiles(np.arange(n_tiles, dtype=np.float32) * tc)
-        if pre.col_allowed is not None:
-            allowed = np.zeros(col_map.shape[0], dtype=np.uint8)
-            used = col_map < C
-            allowed[used] = pre.col_allowed[col_map[used]]
-            tiles_common["allowed"] = own_tiles(allowed)
-        _cache_put(m2_key, (m2_coo, tiles_common, col_map, own_lists))
-    else:
-        m2_coo, tiles_common, col_map, own_lists = cached
+            tiles_common = {
+                name: own_tiles(_vec_by_map(v, col_map, C))
+                for name, v in (("y_t", pre.Yt), ("y_c", pre.Yc), ("y_d", pre.Yd))
+            }
+            tiles_common["col_offset"] = own_tiles(np.arange(n_tiles, dtype=np.float32) * tc)
+            if pre.col_allowed is not None:
+                allowed = np.zeros(col_map.shape[0], dtype=np.uint8)
+                used = col_map < C
+                allowed[used] = pre.col_allowed[col_map[used]]
+                tiles_common["allowed"] = own_tiles(allowed)
+            cached = (m2_coo, tiles_common, col_map, own_lists)
+            _stage_put(stage, m2_key, cached)
+    m2_coo, tiles_common, col_map, own_lists = cached
     t_rows, t_cols, t_vals = m2_coo
 
     # ---- matrix1 panels: target rows dealt round-robin by nnz rank over
@@ -885,32 +890,33 @@ def execute_grouped(
     )
     cached = _cache_get(m1_key)
     if cached is None:
-        _evict_stale("m1", pre.fp1, m1_key)
-        m1_t = m1[targets]
-        if int8_mode:
-            m1_t.data = np.rint(m1_t.data * pre.qscale1).astype(np.float32)
-        if f32x3:
-            m1_t = canonical(m1_t)
-        n_slots = n_panels * R_sh
-        order = np.argsort(-np.diff(m1_t.indptr), kind="stable")
-        slot_sel = [order[s::n_slots] for s in range(n_slots)]
-        panels = []
-        for p in range(n_panels):
-            sel = slot_sel[p * R_sh + r_me]
-            panel = m1_t[sel]
-            tgt = targets[sel]
-            pr = np.repeat(np.arange(sel.shape[0], dtype=np.int32), np.diff(panel.indptr))
-            coo = (pr, panel.indices.astype(np.int32), panel.data)
-            if a_split:  # the [hi; lo] stack, 2 u_pad wide
-                coo = split_coo(*coo, u_pad, axis=1)
-            vecs = [
-                _pad_vec(v[tgt] if v is not None else None, trp)
-                for v in (pre.Xt, pre.Xc, pre.Xd)
-            ]
-            panels.append((*map(dev, coo), *map(dev, vecs)))
-        _cache_put(m1_key, (panels, slot_sel))
-    else:
-        panels, slot_sel = cached
+        with spans.span("stage") as stage:
+            _evict_stale("m1", pre.fp1, m1_key)
+            m1_t = m1[targets]
+            if int8_mode:
+                m1_t.data = np.rint(m1_t.data * pre.qscale1).astype(np.float32)
+            if f32x3:
+                m1_t = canonical(m1_t)
+            n_slots = n_panels * R_sh
+            order = np.argsort(-np.diff(m1_t.indptr), kind="stable")
+            slot_sel = [order[s::n_slots] for s in range(n_slots)]
+            panels = []
+            for p in range(n_panels):
+                sel = slot_sel[p * R_sh + r_me]
+                panel = m1_t[sel]
+                tgt = targets[sel]
+                pr = np.repeat(np.arange(sel.shape[0], dtype=np.int32), np.diff(panel.indptr))
+                coo = (pr, panel.indices.astype(np.int32), panel.data)
+                if a_split:  # the [hi; lo] stack, 2 u_pad wide
+                    coo = split_coo(*coo, u_pad, axis=1)
+                vecs = [
+                    _pad_vec(v[tgt] if v is not None else None, trp)
+                    for v in (pre.Xt, pre.Xc, pre.Xd)
+                ]
+                panels.append((*map(dev, coo), *map(dev, vecs)))
+            cached = (panels, slot_sel)
+            _stage_put(stage, m1_key, cached)
+    panels, slot_sel = cached
     panel_sel = [slot_sel[p * R_sh + r_me] for p in range(n_panels)]
 
     # ---- per-panel selector tiles (host-resident, uploaded per group) ----
@@ -928,19 +934,20 @@ def execute_grouped(
         )
         cached = _cache_get(sel_key)
         if cached is None:
-            _evict_stale("sel", pre.fp1, sel_key)
-            for name, mat in (("fil", fil_matrix), ("tgt", pre.target_matrix)):
-                if mat is None:
-                    continue
-                sel_t = mat[targets]
-                pf = _selector_pf(sel_t, panel_sel, col_map, tc, C, n_tiles)
-                stacks = [
-                    _stack_selector_tiles_balanced(sel_t[sel].tocsc(), own_lists, tc, trp, pf)
-                    for sel in panel_sel
-                ]
-                sel_stacked[f"{name}_rows"] = np.stack([s[0] for s in stacks])
-                sel_stacked[f"{name}_cols"] = np.stack([s[1] for s in stacks])
-            _cache_put(sel_key, sel_stacked)
+            with spans.span("stage") as stage:
+                _evict_stale("sel", pre.fp1, sel_key)
+                for name, mat in (("fil", fil_matrix), ("tgt", pre.target_matrix)):
+                    if mat is None:
+                        continue
+                    sel_t = mat[targets]
+                    pf = _selector_pf(sel_t, panel_sel, col_map, tc, C, n_tiles)
+                    stacks = [
+                        _stack_selector_tiles_balanced(sel_t[sel].tocsc(), own_lists, tc, trp, pf)
+                        for sel in panel_sel
+                    ]
+                    sel_stacked[f"{name}_rows"] = np.stack([s[0] for s in stacks])
+                    sel_stacked[f"{name}_cols"] = np.stack([s[1] for s in stacks])
+                _stage_put(stage, sel_key, sel_stacked)
         else:
             sel_stacked = cached
 
@@ -1022,11 +1029,23 @@ _HOST_CACHE_MAX_BYTES = 2048 << 20
 
 _MISS = object()
 
+# lookups by kind since the last clear_caches(), and the OOM retries of
+# execute(), for cache_info()
+_CACHE_COUNTS: dict = {}
+_oom_retries = 0
+
+
+def _kind(key) -> str:
+    return key[0] if isinstance(key, tuple) and key else "?"
+
 
 def _cache_get(key):
     value = _DEVICE_CACHE.pop(key, _MISS)
+    counts = _CACHE_COUNTS.setdefault(_kind(key), {"hits": 0, "misses": 0})
     if value is _MISS:
+        counts["misses"] += 1
         return None
+    counts["hits"] += 1
     _DEVICE_CACHE[key] = value  # reinsert at the end: eviction is LRU
     return value
 
@@ -1068,6 +1087,15 @@ def _cache_put(key, value):
         _DEVICE_CACHE.pop(host_keys.pop(0), None)
 
 
+def _stage_put(stage, key, value) -> None:
+    """_cache_put at the end of a miss's ``stage`` span, which records the
+    key's tag and the bytes the entry holds."""
+    _cache_put(key, value)
+    if spans.ACTIVE:
+        stage.attrs.update(kind=_kind(key), bytes=_device_bytes(value),
+                           host_bytes=_host_bytes(value))
+
+
 def _evict_stale(tag: str, fp, keep_key) -> None:
     """Drop `tag` entries of the same matrix fingerprint under another key
     (stale geometry or dtype variants): foreign_cache_bytes does not count
@@ -1105,10 +1133,14 @@ def foreign_cache_bytes(keep_fps: tuple) -> int:
 
 def clear_caches():
     """Drop every engine cache: the device uploads, the fold statistics and
-    the host preprocess cache. Safe at any time; the next call re-stages.
-    The caches key on full-content fingerprints, so this is never needed
-    for correctness, only to release memory."""
+    the host preprocess cache, and reset the counts of ``cache_info``.
+    Safe at any time; the next call re-stages. The caches key on
+    full-content fingerprints, so this is never needed for correctness,
+    only to release memory."""
+    global _oom_retries
     _DEVICE_CACHE.clear()
+    _CACHE_COUNTS.clear()
+    _oom_retries = 0
     _FOLD_STAT_CACHE.clear()
     _BF16_EXACT_CACHE.clear()
     clear_prep_cache()
@@ -1116,17 +1148,22 @@ def clear_caches():
 
 def cache_info() -> dict:
     """Resident footprint of the engine caches, for memory monitoring
-    (pairs with :func:`clear_caches`).
+    (pairs with :func:`clear_caches`), and their lookups since the last
+    :func:`clear_caches`.
 
     Returns ``{"entries", "device_bytes", "host_bytes", "by_kind": {kind:
-    {"entries", "device_bytes", "host_bytes"}}, "prep_entries"}`` where
-    ``kind`` is the key's tag ("m2", "m1", "sel", "sym_coo", "compact_m1",
-    "compact_m2") and
-    ``prep_entries`` counts the host preprocess cache."""
+    {"entries", "device_bytes", "host_bytes"}}, "prep_entries", "hits":
+    {kind: n}, "misses": {kind: n}, "prep_hits", "prep_misses",
+    "oom_retries"}`` where ``kind`` is the key's tag ("m2", "m1", "sel",
+    "sym_coo", "compact_m1", "compact_m2"), ``prep_entries`` counts the
+    host preprocess cache, ``hits`` and ``misses`` the device cache's
+    lookups, ``prep_hits`` and ``prep_misses`` the preprocess cache's, and
+    ``oom_retries`` the calls that ran out of device memory and were
+    replanned."""
     device_bytes = host_bytes = 0
     by_kind: dict = {}
     for key, value in _DEVICE_CACHE.items():
-        kind = key[0] if isinstance(key, tuple) and key else "?"
+        kind = _kind(key)
         d, h = _device_bytes(value), _host_bytes(value)
         device_bytes += d
         host_bytes += h
@@ -1134,10 +1171,16 @@ def cache_info() -> dict:
         e["entries"] += 1
         e["device_bytes"] += d
         e["host_bytes"] += h
+    prep = prep_cache_counts()
     return {
         "entries": len(_DEVICE_CACHE),
         "device_bytes": device_bytes,
         "host_bytes": host_bytes,
         "by_kind": by_kind,
         "prep_entries": prep_cache_len(),
+        "hits": {kind: c["hits"] for kind, c in _CACHE_COUNTS.items()},
+        "misses": {kind: c["misses"] for kind, c in _CACHE_COUNTS.items()},
+        "prep_hits": prep.get("hits", 0),
+        "prep_misses": prep.get("misses", 0),
+        "oom_retries": _oom_retries,
     }

@@ -31,6 +31,7 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..ops.csr import csr_col_sums, csr_row_sums, ensure_csr_f32
+from . import spans
 
 MODE_NONE = 0
 MODE_ARRAY = 1
@@ -127,11 +128,18 @@ class Selector:
 
 
 def build_column_selector(cols) -> Selector:
-    """Classify filter/target spec (reference: s_plus_utils.pyx:311-361)."""
+    """Classify filter/target spec (reference: s_plus_utils.pyx:311-361).
+
+    A sparse spec becomes a CSR without explicit zeros and with sorted
+    indices; the caller's matrix is never changed (``tocsr()`` of a CSR is
+    the caller's own object), so it is copied when there is work to do."""
     if sp.issparse(cols) and cols.data.shape[0] != 0:
         m = cols.tocsr()
-        m.eliminate_zeros()
-        m.sort_indices()
+        if not (m.data.all() and m.has_sorted_indices):
+            if m is cols:
+                m = m.copy()
+            m.eliminate_zeros()
+            m.sort_indices()
         return Selector(mode=MODE_MATRIX, matrix=m)
     if isinstance(cols, (list, np.ndarray)) and len(cols) != 0:
         return Selector(mode=MODE_ARRAY, array=np.asarray(cols, dtype=np.int64))
@@ -200,30 +208,44 @@ class Preprocessed:
 
 def _fingerprint(*arrays) -> str:
     """Full-content sha1 of the given arrays (shape, dtype and every byte),
-    so in-place mutation of a SciPy matrix between calls is always seen."""
-    h = hashlib.sha1()
-    for a in arrays:
-        if a is None:
-            h.update(b"\x00none")
-            continue
-        a = np.asarray(a)
-        h.update(str(a.shape).encode())
-        h.update(str(a.dtype).encode())
-        if a.size:
-            h.update(np.ascontiguousarray(a))
-    return h.hexdigest()
+    so in-place mutation of a SciPy matrix between calls is always seen.
+    A traced call records it as a ``hash`` span with the bytes hashed."""
+    with spans.span("hash") as span:
+        h = hashlib.sha1()
+        nbytes = 0
+        for a in arrays:
+            if a is None:
+                h.update(b"\x00none")
+                continue
+            a = np.asarray(a)
+            h.update(str(a.shape).encode())
+            h.update(str(a.dtype).encode())
+            if a.size:
+                h.update(np.ascontiguousarray(a))
+                nbytes += a.nbytes
+        if spans.ACTIVE:
+            span.attrs["bytes"] = nbytes
+        return h.hexdigest()
 
 
 _PREP_CACHE: dict = {}
 _PREP_CACHE_CAP = 4
+# lookups of the preprocess cache since the last clear_prep_cache()
+_PREP_COUNTS = {"hits": 0, "misses": 0}
 
 
 def clear_prep_cache():
     _PREP_CACHE.clear()
+    _PREP_COUNTS.update(hits=0, misses=0)
 
 
 def prep_cache_len() -> int:
     return len(_PREP_CACHE)
+
+
+def prep_cache_counts() -> dict:
+    """Hits and misses of the host preprocess cache."""
+    return dict(_PREP_COUNTS)
 
 
 def _prep_cache_key(fp1, fp2, depop1, depop2, p1, p2, c1, c2, l1, l2, l3,
@@ -256,7 +278,8 @@ def preprocess(
     self_similar: bool = False,
 ) -> Preprocessed:
     """Build all device-ready inputs (reference flow: s_plus.pyx:168-346)."""
-    m1 = ensure_csr_f32(matrix1)
+    with spans.span("coerce"):
+        m1 = ensure_csr_f32(matrix1)
     fp1 = _fingerprint(m1.indptr, m1.indices, m1.data)
     if self_similar:
         # matrix2 is exactly m1.T — keep it a zero-copy CSC transpose
@@ -266,7 +289,8 @@ def preprocess(
         m2 = m1.T
         fp2 = fp1 + ":T"
     else:
-        m2 = ensure_csr_f32(matrix2)
+        with spans.span("coerce"):
+            m2 = ensure_csr_f32(matrix2)
         fp2 = _fingerprint(m2.indptr, m2.indices, m2.data)
 
     # The O(nnz) artifacts (binary transform, norm vectors, quantization
@@ -278,6 +302,7 @@ def preprocess(
         p1, p2, c1, c2, l1, l2, l3, additive_shrink, binary,
     )
     hit = _PREP_CACHE.get(cache_key)
+    _PREP_COUNTS["misses" if hit is None else "hits"] += 1
     if binary:
         # distinct digests: the transformed matrices differ from the raw
         # ones even though the raw bytes (and fp) are the same

@@ -30,24 +30,30 @@ int = explicit width) as a column-tile-width hint.
 
 from __future__ import annotations
 
-import sys
-import time
 from typing import Optional
 
 from ..utils.device import resolve_device
 from ..utils.progress import ProgressBar
+from . import executor, spans
 from .assembly import assemble
 from .executor import execute
 from .params import SPlusParams
 from .preprocess import Preprocessed, preprocess, validate_s_plus_inputs
 
 # host timing laps of each call (splus.py:78-183 of the JAX package, there
-# behind SIMILARIPY_TPU_TIMING): with TIMING on, last_laps holds the seconds
-# of "validate", "preprocess", "execute (wall)" and "assembly" of the latest
-# call, and each lap is printed to stderr. The port reads no environment
-# variable.
+# behind SIMILARIPY_TPU_TIMING): with TIMING on, each call records its spans
+# (engine/spans.py) and last_laps holds the seconds of the lap spans
+# "validate", "preprocess", "execute (wall)" and "assembly" of the latest
+# call. The port reads no environment variable.
 TIMING = False
 last_laps: dict = {}
+
+
+def _lap(name) -> None:
+    """Ends the running lap span and starts lap `name` (None: none)."""
+    done = spans.lap(name)
+    if done is not None:
+        last_laps[done.name] = done.seconds
 
 
 def s_plus(
@@ -96,99 +102,92 @@ def s_plus(
     timing = TIMING
     if timing:
         last_laps.clear()
-    t_mark = time.perf_counter()
+    with spans.call(timing) as root:
+        _lap("validate")
+        validate_s_plus_inputs(
+            matrix1=matrix1,
+            matrix2=matrix2,
+            weight_depop_matrix1=weight_depop_matrix1,
+            weight_depop_matrix2=weight_depop_matrix2,
+            k=k,
+            target_rows=target_rows,
+            filter_cols=filter_cols,
+            target_cols=target_cols,
+            verbose=verbose,
+            format_output=format_output,
+        )
 
-    def lap(label):
-        nonlocal t_mark
-        if not timing:
-            return
-        now = time.perf_counter()
-        last_laps[label] = now - t_mark
-        print(f"# {label}: {now - t_mark:.3f}s", file=sys.stderr, flush=True)
-        t_mark = now
+        n_targets = (
+            len(target_rows) if target_rows is not None else matrix1.shape[0]
+        )
+        progress = ProgressBar(n_targets, disabled=not verbose)
+        progress.set_description("Preprocessing")
 
-    validate_s_plus_inputs(
-        matrix1=matrix1,
-        matrix2=matrix2,
-        weight_depop_matrix1=weight_depop_matrix1,
-        weight_depop_matrix2=weight_depop_matrix2,
-        k=k,
-        target_rows=target_rows,
-        filter_cols=filter_cols,
-        target_cols=target_cols,
-        verbose=verbose,
-        format_output=format_output,
-    )
+        _lap("preprocess")
+        pre: Preprocessed = preprocess(
+            matrix1,
+            matrix2,
+            weight_depop_matrix1=weight_depop_matrix1,
+            weight_depop_matrix2=weight_depop_matrix2,
+            p1=p1,
+            p2=p2,
+            c1=c1,
+            c2=c2,
+            l1=l1,
+            l2=l2,
+            l3=l3,
+            k=k,
+            additive_shrink=additive_shrink,
+            binary=binary,
+            target_rows=target_rows,
+            filter_cols=filter_cols,
+            target_cols=target_cols,
+            self_similar=self_similar,
+        )
 
-    n_targets = (
-        len(target_rows) if target_rows is not None else matrix1.shape[0]
-    )
-    progress = ProgressBar(n_targets, disabled=not verbose)
-    progress.set_description("Preprocessing")
+        _lap("execute (wall)")
+        params = SPlusParams(
+            a1=a1,
+            l1=l1,
+            l2=l2,
+            l3=l3,
+            t1=t1,
+            t2=t2,
+            stabilized_shrink=stabilized_shrink,
+            bayesian_shrink=bayesian_shrink,
+            threshold=threshold,
+        )
 
-    lap("validate")
-    pre: Preprocessed = preprocess(
-        matrix1,
-        matrix2,
-        weight_depop_matrix1=weight_depop_matrix1,
-        weight_depop_matrix2=weight_depop_matrix2,
-        p1=p1,
-        p2=p2,
-        c1=c1,
-        c2=c2,
-        l1=l1,
-        l2=l2,
-        l3=l3,
-        k=k,
-        additive_shrink=additive_shrink,
-        binary=binary,
-        target_rows=target_rows,
-        filter_cols=filter_cols,
-        target_cols=target_cols,
-        self_similar=self_similar,
-    )
+        progress.set_description("Computing")
+        run, on_mesh = execute, {}
+        if mesh is not None:
+            from .sharded import execute_sharded
 
-    lap("preprocess")
-    params = SPlusParams(
-        a1=a1,
-        l1=l1,
-        l2=l2,
-        l3=l3,
-        t1=t1,
-        t2=t2,
-        stabilized_shrink=stabilized_shrink,
-        bayesian_shrink=bayesian_shrink,
-        threshold=threshold,
-    )
+            run, on_mesh = execute_sharded, {"mesh": mesh}
+        vals, idx = run(
+            pre,
+            params,
+            block_size_hint=block_size,
+            compute_dtype=compute_dtype,
+            precision=precision,
+            progress=progress,
+            device=device,
+            **on_mesh,
+        )
+        if timing:
+            root.attrs.update(route=executor.last_route, targets=n_targets)
 
-    progress.set_description("Computing")
-    run, on_mesh = execute, {}
-    if mesh is not None:
-        from .sharded import execute_sharded
-
-        run, on_mesh = execute_sharded, {"mesh": mesh}
-    vals, idx = run(
-        pre,
-        params,
-        block_size_hint=block_size,
-        compute_dtype=compute_dtype,
-        precision=precision,
-        progress=progress,
-        device=device,
-        **on_mesh,
-    )
-
-    progress.set_description(f"Building {format_output} matrix")
-    lap("execute (wall)")
-    res = assemble(
-        vals,
-        idx,
-        pre.targets,
-        pre.n_output_rows,
-        pre.n_output_cols,
-        format_output,
-        native=device.type == "cuda",
-    )
-    lap("assembly")
+        progress.set_description(f"Building {format_output} matrix")
+        _lap("assembly")
+        res = assemble(
+            vals,
+            idx,
+            pre.targets,
+            pre.n_output_rows,
+            pre.n_output_cols,
+            format_output,
+            native=device.type == "cuda",
+        )
+        _lap(None)
     progress.close("Done")
     return res

@@ -52,7 +52,7 @@ import torch
 
 from ..ops.csr import csc_quantized
 from ..parallel import mesh as pmesh
-from . import scatter, sym_topk
+from . import scatter, spans, sym_topk
 from .params import SPlusParams, build_pvec
 from .preprocess import Preprocessed, _fingerprint
 from .sym_sharded import pair_schedule, rank_work, schedule_anatomy
@@ -257,8 +257,9 @@ def cached_prep_symmetric(pre: Preprocessed, compute_dtype: str, tc: int,
     geometry, device) key in the device cache, the per-similarity vector
     layouts nested in that entry under their fingerprints, so a sweep of
     different similarities over one matrix re-stacks nothing. Returns
-    (device COO, device vectors, item_map)."""
-    from .executor import _cache_get, _cache_put, _evict_stale
+    (device COO, device vectors, item_map). A miss of either level is a
+    ``stage`` span of a traced call (kind "sym_coo" or "sym_vecs")."""
+    from .executor import _cache_get, _device_bytes, _evict_stale, _stage_put
 
     def upload(arrays):
         return {name: torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -271,21 +272,23 @@ def cached_prep_symmetric(pre: Preprocessed, compute_dtype: str, tc: int,
     )
     cached = _cache_get(coo_key)
     if cached is None:
-        _evict_stale("sym_coo", pre.fp2, coo_key)
-        coo_host, item_map = prep_coo_symmetric(pre, compute_dtype, tc, n_tiles_dev, u_pad,
-                                                split)
-        dev_coo = upload(coo_host)
-        vec_cache: dict = {}
-        _cache_put(coo_key, (dev_coo, item_map, vec_cache))
-    else:
-        dev_coo, item_map, vec_cache = cached
+        with spans.span("stage") as stage:
+            _evict_stale("sym_coo", pre.fp2, coo_key)
+            coo_host, item_map = prep_coo_symmetric(pre, compute_dtype, tc, n_tiles_dev,
+                                                    u_pad, split)
+            cached = (upload(coo_host), item_map, {})
+            _stage_put(stage, coo_key, cached)
+    dev_coo, item_map, vec_cache = cached
     vec_key = (_fingerprint(pre.Yt, pre.Yc, pre.Yd), _fingerprint(pre.Xt, pre.Xc, pre.Xd))
     vecs = vec_cache.get(vec_key)
     if vecs is None:
-        vecs = upload(prep_vecs_symmetric(pre, item_map, tc, n_tiles_dev))
-        if len(vec_cache) >= 16:
-            vec_cache.pop(next(iter(vec_cache)))
-        vec_cache[vec_key] = vecs
+        with spans.span("stage") as stage:
+            vecs = upload(prep_vecs_symmetric(pre, item_map, tc, n_tiles_dev))
+            if len(vec_cache) >= 16:
+                vec_cache.pop(next(iter(vec_cache)))
+            vec_cache[vec_key] = vecs
+            if spans.ACTIVE:
+                stage.attrs.update(kind="sym_vecs", bytes=_device_bytes(vecs), host_bytes=0)
     return dev_coo, vecs, item_map
 
 

@@ -17,14 +17,18 @@ def ensure_csr_f32(matrix) -> sp.csr_array:
 
     The reference eliminates zeros before compute to make binary mode and
     zero-division behavior well-defined (reference: s_plus.pyx:205-211).
+    The result shares the input's arrays where it can; the caller's matrix
+    is never changed: an input holding explicit zeros is copied before
+    they are eliminated, in place.
     """
     m = matrix.tocsr() if not isinstance(matrix, (sp.csr_array, sp.csr_matrix)) else matrix
     if not isinstance(m, (sp.csr_array, sp.csr_matrix)):
         m = sp.csr_array(m)
-    # Work on a shallow component copy so we never mutate user input.
     data = m.data.astype(np.float32, copy=False)
     out = sp.csr_array((data, m.indices, m.indptr), shape=m.shape)
-    out.eliminate_zeros()
+    if not data.all():
+        out = out.copy()
+        out.eliminate_zeros()
     return out
 
 
