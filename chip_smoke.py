@@ -1595,9 +1595,9 @@ def _time_k5(torch, sc, coo, plan, int8):
 def _compact_panel(torch, dev, m_items, targets, plan, dtype, params, **prep):
     """Panel 0 of the largest cold bucket of a compaction call against the
     call's first column group, staged by the executor's own staging
-    (compact.stage_panels, compact.stage_tiles) at the call's plan: the
-    panel's hot and cold lhs, the dense group table, the gather ids and
-    the vectors."""
+    (compact.stage_panels, compact.stage_tiles, compact.rank_rows) at the
+    call's plan: the panel's hot and cold lhs, the dense group table in
+    the call's rank order, the gather ids and the vectors."""
     from similaripy_tpu_torch.engine import compact, scatter
     from similaripy_tpu_torch.engine import executor as ex
     from similaripy_tpu_torch.engine.params import build_pvec
@@ -1606,15 +1606,15 @@ def _compact_panel(torch, dev, m_items, targets, plan, dtype, params, **prep):
     pre = preprocess(m_items, m_items.T, k=100, target_rows=targets, self_similar=True, **prep)
     cd, inv_scale = ex.resolve_compute_dtype(dtype, pre)
     H, tc, u_pad, cg = plan["H"], plan["tc"], plan["u_pad"], plan["cg"]
-    buckets, rank_of = compact.stage_panels(pre, cd, u_pad=u_pad, device=dev,
-                                            densify=scatter.densify_tiles)
+    buckets, rank_table = compact.stage_panels(pre, cd, u_pad=u_pad, device=dev,
+                                               densify=scatter.densify_tiles)
     b = max(buckets, key=lambda b: b["B"])
-    (rows, cols, vals, yvecs), _ = compact.stage_tiles(pre, cd, rank_of, tc=tc,
-                                                       n_tiles=plan["n_tiles"], u_pad=u_pad,
-                                                       device=dev)
+    (rows, cols, vals, yvecs), _ = compact.stage_tiles(pre, cd, tc=tc, n_tiles=plan["n_tiles"],
+                                                       u_pad=u_pad, device=dev)
     G = cg // tc
-    d_group = compact._build_d_group(rows[:G], cols[:G], vals[:G], u_pad=u_pad, tc=tc,
-                                     cdt=ex.compute_cast(cd), densify=scatter.densify_tiles)
+    d_group = compact._build_d_group(compact.rank_rows(rows[:G], rank_table), cols[:G],
+                                     vals[:G], u_pad=u_pad, tc=tc, cdt=ex.compute_cast(cd),
+                                     densify=scatter.densify_tiles)
     pv = np.zeros(16, np.float32)
     pv[:10] = build_pvec(params, inv_scale)
     return {

@@ -26,6 +26,14 @@ dimension (no gather, no bias). Dense tiles are densified by K5
 scores stay int32 and join the cold int32 accumulator inside K3 before the
 single inverse-scale multiply.
 
+Both sides stay in the device cache (executor.py). The "compact_m1" entry
+(the plan's panels and the user ranks as a device table) keys on the
+targets. The "compact_m2" entry (matrix2's balanced per-tile COO with the
+user axis in user order, the column map and the column vectors) keys on
+matrix2 and its column vectors alone, so calls on fixed ratings that change
+only their targets stage matrix2 once; each column group's rows are put in
+the call's rank order on the device (``rank_rows``) just before K5.
+
 The JAX package turns this route off on its TPU, whose per-row DMA gather
 ran at ~6 GB/s; on a card a row gather is a plain coalesced copy (K4 moves
 ~2.9 TB/s). The route is chosen by ``MODE`` (no environment variable is
@@ -341,7 +349,9 @@ def _run_bucket_panels(b, d_group, d_hot, yv, pvec_ext, carry, *, flags, k, k_pa
 def stage_panels(pre: Preprocessed, compute_dtype: str, *, u_pad: int, device, densify):
     """The m1 side of a call on the device: plan_compact's buckets with
     their dense (n_p, TM, H) hot and (n_p, TM, K - H) cold lhs, gather ids
-    and target vectors, and the user ranks. Returns (buckets, rank_of)."""
+    and target vectors, and the user ranks as an int32 table of U + 1
+    entries whose last is the sentinel u_pad (``rank_rows``). Returns
+    (buckets, rank_table)."""
     from .executor import compute_cast
 
     int8_mode = compute_dtype in ("int8", "int4")
@@ -364,18 +374,29 @@ def stage_panels(pre: Preprocessed, compute_dtype: str, *, u_pad: int, device, d
             gi=None if b.gather_idx is None else dev(b.gather_idx),
             sx_t=dev(b.sx_t), sx_c=dev(b.sx_c), sx_d=dev(b.sx_d),
         ))
-    return buckets, plan.rank_of
+    rank_table = np.append(plan.rank_of, u_pad).astype(np.int32)
+    return buckets, dev(rank_table)
 
 
-def stage_tiles(pre: Preprocessed, compute_dtype: str, rank_of, *, tc: int, n_tiles: int,
+def rank_rows(rows, rank_table):
+    """A group's per-tile COO rows (user ids, padding u_pad) in the call's
+    rank order, by one device index through ``rank_table`` (U + 1 entries,
+    the last u_pad), so padding stays u_pad."""
+    u = rank_table.shape[0] - 1
+    return torch.index_select(rank_table, 0, rows.clamp_max(u).reshape(-1)).reshape(rows.shape)
+
+
+def stage_tiles(pre: Preprocessed, compute_dtype: str, *, tc: int, n_tiles: int,
                 u_pad: int, device):
-    """The m2 side of a call on the device: matrix2's columns dealt over
-    n_tiles balanced tiles, each tile's COO with the user axis in rank
-    order, and the column vectors (and the allowed mask) in that layout.
-    Returns ((rows, cols, vals, yvecs), col_map)."""
+    """The m2 side on the device, which depends on matrix2 and its column
+    vectors alone: its columns dealt over n_tiles balanced tiles, each
+    tile's COO with the user axis in user order (padding u_pad), and the
+    column vectors (and the allowed mask) in that layout. A call ranks the
+    rows of each group with ``rank_rows``. Returns ((rows, cols, vals,
+    yvecs), col_map)."""
     from . import executor as ex
 
-    U, C = pre.m1.shape[1], pre.n_output_cols
+    C = pre.n_output_cols
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -384,8 +405,6 @@ def stage_tiles(pre: Preprocessed, compute_dtype: str, rank_of, *, tc: int, n_ti
     m2_csc = csc_quantized(pre.m2, pre.qscale2 if int8_mode else None)
     tile_lists, col_map = ex.balance_columns(np.diff(m2_csc.indptr), n_tiles, tc)
     rows, cols, vals = ex._stack_m2_tiles_balanced(m2_csc, tile_lists, tc, u_pad)
-    # rank the user axis; padding sentinel rows (u_pad) stay sentinel
-    rows = np.where(rows >= U, u_pad, rank_of[np.minimum(rows, U - 1)]).astype(np.int32)
     yvecs = {
         name: dev(ex._vec_by_map(v, col_map, C))
         for name, v in (("y_t", pre.Yt), ("y_c", pre.Yc), ("y_d", pre.Yd))
@@ -448,13 +467,14 @@ def execute_compact(
             cached = stage_panels(pre, compute_dtype, u_pad=u_pad, device=device,
                                   densify=densify)
             ex._stage_put(stage, m1_key, cached)
-    dev_buckets, rank_of = cached
+    dev_buckets, rank_table = cached
 
     # ---- group sizing under the device budget (compact.py:541) ----
     b2 = max((b["B"] for b in dev_buckets), default=0)
     misc = (
-        ex._device_bytes(dev_buckets)
+        ex._device_bytes((dev_buckets, rank_table))
         + int(m2.nnz * 12 * 1.8)  # staged COO uploads
+        + int(m2.nnz * 4 * 1.8)  # a group's ranked rows (G x p2 x 4), at most the whole stack
         + ex.foreign_cache_bytes((pre.fp1, pre.fp2))
         + (1 << 30)
     )
@@ -472,18 +492,18 @@ def execute_compact(
     n_tiles = n_groups * G
     cg = G * tc
 
-    # ---- m2 side: balanced columns, ranked rows, per-tile COO (cached) ----
+    # ---- m2 side: balanced columns, per-tile COO in user order (cached
+    # across calls on the same matrix2, whatever their targets) ----
     m2_key = (
-        "compact_m2", pre.fp2,
-        _fingerprint(pre.Yt, pre.Yc, pre.Yd, pre.col_allowed, rank_of),
+        "compact_m2", pre.fp2, _fingerprint(pre.Yt, pre.Yc, pre.Yd, pre.col_allowed),
         compute_dtype, tc, n_tiles, u_pad, str(device),
     )
     cached = ex._cache_get(m2_key)
     if cached is None:
         with spans.span("stage") as stage:
             ex._evict_stale("compact_m2", pre.fp2, m2_key)
-            cached = stage_tiles(pre, compute_dtype, rank_of, tc=tc, n_tiles=n_tiles,
-                                 u_pad=u_pad, device=device)
+            cached = stage_tiles(pre, compute_dtype, tc=tc, n_tiles=n_tiles, u_pad=u_pad,
+                                 device=device)
             ex._stage_put(stage, m2_key, cached)
     (t_rows, t_cols, t_vals, yvecs), col_map = cached
 
@@ -505,8 +525,8 @@ def execute_compact(
     for g in range(n_groups):
         t0, t1 = g * G, (g + 1) * G
         d_group = d_hot = None  # release the previous group before the next lands
-        d_group = _build_d_group(t_rows[t0:t1], t_cols[t0:t1], t_vals[t0:t1],
-                                 u_pad=u_pad, tc=tc, cdt=cdt, densify=densify)
+        d_group = _build_d_group(rank_rows(t_rows[t0:t1], rank_table), t_cols[t0:t1],
+                                 t_vals[t0:t1], u_pad=u_pad, tc=tc, cdt=cdt, densify=densify)
         if any(b["B"] != 0 for b in dev_buckets):
             d_hot = d_group[:H]
             if compute_dtype == "bfloat16":

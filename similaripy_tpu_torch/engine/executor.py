@@ -1012,8 +1012,9 @@ def execute_grouped(
 # mutation of an input is always seen. Keys are tuples whose first entry
 # is the kind: "m2" tile stacks, "m1" panel uploads and "sel" host-resident
 # selector stacks of the general executor, "sym_coo" stackings of the
-# symmetric executor, "compact_m1" panel stacks and "compact_m2" tile COOs
-# of the compaction executor.
+# symmetric executor, "compact_m1" panel stacks (keyed on the targets) and
+# "compact_m2" tile COOs (keyed on matrix2 and its column vectors alone, so
+# a new target set reuses them) of the compaction executor.
 
 _DEVICE_CACHE: dict = {}
 # m1 panels + m2 tiles + selector stacks of a scoring call take 3 slots
@@ -1155,8 +1156,9 @@ def cache_info() -> dict:
     {"entries", "device_bytes", "host_bytes"}}, "prep_entries", "hits":
     {kind: n}, "misses": {kind: n}, "prep_hits", "prep_misses",
     "oom_retries"}`` where ``kind`` is the key's tag ("m2", "m1", "sel",
-    "sym_coo", "compact_m1", "compact_m2"), ``prep_entries`` counts the
-    host preprocess cache, ``hits`` and ``misses`` the device cache's
+    "sym_coo", "compact_m1", "compact_m2"; "compact_m2" keys on matrix2
+    and its column vectors only, so calls on fixed ratings that change
+    their targets hit it), ``prep_entries`` counts the host preprocess cache, ``hits`` and ``misses`` the device cache's
     lookups, ``prep_hits`` and ``prep_misses`` the preprocess cache's, and
     ``oom_retries`` the calls that ran out of device memory and were
     replanned."""
