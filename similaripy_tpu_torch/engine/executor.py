@@ -475,18 +475,24 @@ def split_coo(rows, cols, vals, n: int, axis: int):
     when no place repeats. Entries already out of range along `axis` (>= n:
     the tile stacks' padding sentinels) move to 2n, still out of range.
     NumPy arrays of any leading shape; the halves are concatenated along
-    the last axis."""
-    hi, lo = split_bf16x3_parts(torch.from_numpy(np.ascontiguousarray(vals, dtype=np.float32)))
-    hi, lo = hi.to(torch.float32).numpy(), lo.to(torch.float32).numpy()
-    if axis == 0:
-        real = rows < n
-        rows = np.concatenate([np.where(real, rows, 2 * n), np.where(real, rows + n, 2 * n)], -1)
-        cols = np.concatenate([cols, cols], -1)
-    else:
-        real = cols < n
-        rows = np.concatenate([rows, rows], -1)
-        cols = np.concatenate([np.where(real, cols, 2 * n), np.where(real, cols + n, 2 * n)], -1)
-    return rows.astype(np.int32), cols.astype(np.int32), np.concatenate([hi, lo], -1)
+    the last axis. A traced call's span ``split`` (``attrs["entries"]``:
+    the entries given out)."""
+    with spans.span("split") as span:
+        hi, lo = split_bf16x3_parts(torch.from_numpy(np.ascontiguousarray(vals, dtype=np.float32)))
+        hi, lo = hi.to(torch.float32).numpy(), lo.to(torch.float32).numpy()
+        far = 2 * n
+        if axis == 0:
+            real = rows < n
+            rows = np.concatenate([np.where(real, rows, far), np.where(real, rows + n, far)], -1)
+            cols = np.concatenate([cols, cols], -1)
+        else:
+            real = cols < n
+            rows = np.concatenate([rows, rows], -1)
+            cols = np.concatenate([np.where(real, cols, far), np.where(real, cols + n, far)], -1)
+        out = rows.astype(np.int32), cols.astype(np.int32), np.concatenate([hi, lo], -1)
+        if spans.ACTIVE:
+            span.attrs["entries"] = int(out[2].size)
+    return out
 
 
 # ---------------------------------------------------------------------------

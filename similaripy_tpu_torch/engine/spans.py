@@ -1,12 +1,20 @@
 """Call-scoped span log of the port's host path, switched by ``splus.TIMING``.
 
-With ``splus.TIMING`` on, every ``s_plus`` call opens a root span ``call``
-(its ``attrs`` hold the route, ``executor.last_route``, and the number of
-target rows) whose call id rises by one each call. Under it run the four
-laps ``validate``, ``preprocess``, ``execute (wall)`` and ``assembly``
+With ``splus.TIMING`` on, every call opens a root span ``call`` (its
+``attrs`` hold the route, ``executor.last_route``, the number of target
+rows, and K2's launches of the call: ``k2`` by product kernel and
+``k2_asym``, those that carry the asymmetric column side) whose call id
+rises by one each call. ``s_plus`` opens it, or, for a public function
+that works on the host before it calls ``s_plus`` (p3alpha, rp3beta), that
+function does, and ``s_plus`` then opens no second root. Under it run the
+four laps ``validate``, ``preprocess``, ``execute (wall)`` and ``assembly``
 (``splus.last_laps`` is filled from them), and inside those the spans of
 the work itself:
 
+  - ``transform``: the public function's host work before ``s_plus``
+    (ahead of the ``validate`` lap, directly under the root); ``attrs``
+    hold the ``nnz`` and the ``bytes`` (values, indices, pointers) of the
+    matrices it read;
   - ``coerce``: each CSR coercion of ``preprocess`` (``ops/csr.py``);
   - ``hash``: each content fingerprint (``preprocess._fingerprint``), in
     ``preprocess`` or in an executor's cache key; ``attrs["bytes"]`` is
@@ -15,7 +23,10 @@ the work itself:
     stacking and upload); ``attrs`` hold the cache kind (the key's tag,
     or ``"sym_vecs"`` for the symmetric route's nested vector layouts) and
     the ``bytes`` (device) and ``host_bytes`` the entry holds. Key
-    computation stays outside, so no ``hash`` lies inside a ``stage``.
+    computation stays outside, so no ``hash`` lies inside a ``stage``;
+  - ``split``: the split-bf16x3 COO of a ``precision='high'`` call
+    (``executor.split_coo``), inside the ``stage`` that makes it;
+    ``attrs["entries"]`` is the entries it gives out.
 
 A span's ``start`` and ``end`` are ``time.perf_counter()`` readings, the
 clock the benchmark puts device intervals on. While ``torch.profiler`` is
@@ -110,10 +121,11 @@ def _open(name: str, now: float) -> Span:
 
 
 def call(on: bool):
-    """The root span of one s_plus call when `on` (use it in a ``with``
-    statement, which closes every span of the call), else ``OFF``."""
+    """The root span of one call when `on` (use it in a ``with`` statement,
+    which closes every span of the call), else ``OFF``; ``OFF`` too while a
+    root is open (the public function's), whose ``with`` closes the call."""
     global ACTIVE, _last_id
-    if not on:
+    if not on or ACTIVE:
         return OFF
     _last_id += 1
     root = Span("call", _last_id, 0, None, time.perf_counter())
@@ -130,6 +142,11 @@ def _close_call() -> None:
         _stack.pop()._close(now)
     _lap = None
     ACTIVE = False
+
+
+def root():
+    """The open call's root span, or None."""
+    return _stack[0] if ACTIVE else None
 
 
 def span(name: str):

@@ -34,7 +34,7 @@ from typing import Optional
 
 from ..utils.device import resolve_device
 from ..utils.progress import ProgressBar
-from . import executor, spans
+from . import executor, spans, sym_topk
 from .assembly import assemble
 from .executor import execute
 from .params import SPlusParams
@@ -47,6 +47,18 @@ from .preprocess import Preprocessed, preprocess, validate_s_plus_inputs
 # call. The port reads no environment variable.
 TIMING = False
 last_laps: dict = {}
+
+
+def _k2_counts() -> tuple:
+    return dict(sym_topk.product_launches), sym_topk.asym_launches
+
+
+def _k2_launches(before: tuple) -> dict:
+    """The root span's K2 attrs: the call's launches by product kernel (those
+    it ran) and those that carried the asymmetric column side."""
+    (by_kernel, asym), (by_kernel0, asym0) = _k2_counts(), before
+    ran = {name: n - by_kernel0[name] for name, n in by_kernel.items() if n > by_kernel0[name]}
+    return {"k2": ran, "k2_asym": asym - asym0}
 
 
 def _lap(name) -> None:
@@ -102,7 +114,9 @@ def s_plus(
     timing = TIMING
     if timing:
         last_laps.clear()
-    with spans.call(timing) as root:
+        k2_before = _k2_counts()
+    # a public function that transformed the inputs has opened the root
+    with spans.call(timing):
         _lap("validate")
         validate_s_plus_inputs(
             matrix1=matrix1,
@@ -175,7 +189,8 @@ def s_plus(
             **on_mesh,
         )
         if timing:
-            root.attrs.update(route=executor.last_route, targets=n_targets)
+            spans.root().attrs.update(route=executor.last_route, targets=n_targets,
+                                      **_k2_launches(k2_before))
 
         progress.set_description(f"Building {format_output} matrix")
         _lap("assembly")

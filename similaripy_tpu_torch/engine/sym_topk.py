@@ -34,7 +34,8 @@ matrix, so the one-sided modes never apply).
 
 ``kernel_launches`` and ``plain_calls`` count the two routes (one per call);
 ``product_launches`` the product kernel each launch took, by name
-(``tile_topk.PRODUCT_KERNELS``).
+(``tile_topk.PRODUCT_KERNELS``); ``asym_launches`` the launches that carried
+the asymmetric column side (``x2``/``y2``).
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ MAX_KERNEL_K_PAD = 1024
 kernel_launches = 0
 plain_calls = 0
 product_launches = dict.fromkeys(PRODUCT_KERNELS, 0)
+asym_launches = 0
 
 # int8 products run in float64 on the plain path (exact below 2**53), over
 # slabs of the user axis so that the f64 copies stay small
@@ -69,9 +71,10 @@ _PLAIN_INT8_USERS = 16384
 
 
 def reset_counts() -> None:
-    global kernel_launches, plain_calls
+    global kernel_launches, plain_calls, asym_launches
     kernel_launches = 0
     plain_calls = 0
+    asym_launches = 0
     product_launches.update(dict.fromkeys(PRODUCT_KERNELS, 0))
 
 
@@ -237,7 +240,7 @@ def fused_sym_topk(
 
 def _launch(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
             pvec_ext, *, flags, k, tc, int8_mode, x2, y2, split):
-    global kernel_launches
+    global kernel_launches, asym_launches
     from .build import check, load
 
     dev, dtype = a.device, a.dtype
@@ -313,6 +316,7 @@ def _launch(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
                             None, ccv.data_ptr(), cci.data_ptr(),
                             cvals.data_ptr(), cidx.data_ptr(), stream), what)
     kernel_launches += 1
+    asym_launches += x2 is not None
     count_product(product_launches, kind)
     return rvals, ridx, cvals, cidx
 

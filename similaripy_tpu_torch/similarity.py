@@ -26,8 +26,11 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import scipy.sparse as _sp
 
 from .engine import s_plus as _engine_s_plus
+from .engine import spans as _spans
+from .engine import splus as _splus
 from .normalization import normalize as _normalize
 
 
@@ -299,12 +302,59 @@ def p3alpha(
     A_iu = m_iu^a / c_u^(a/2) — one shared operand (A, A.T) plus a
     row-side depop r^a. Same scores; the JAX package takes this form for
     its symmetric executor."""
-    if matrix2 is None and shrink == 0 and not binary:
-        return _p3_symmetric(
-            matrix1, alpha, None, 0.0, k, shrink, shrink_type, threshold,
-            binary, target_rows, target_cols, filter_cols, verbose,
-            format_output, num_threads, block_size, extensions,
-        )
+
+    def transform():
+        if matrix2 is None and shrink == 0 and not binary:
+            return _p3_symmetric(matrix1, alpha, None, 0.0)
+        return _p3_general(matrix1, matrix2, alpha, extensions)
+
+    return _host_transformed(
+        (matrix1, matrix2), transform,
+        _common_kwargs(
+            k, shrink, shrink_type, threshold, binary, target_rows, target_cols,
+            filter_cols, verbose, format_output, num_threads, block_size, extensions,
+        ),
+    )
+
+
+def _sparse_footprint(matrices) -> dict:
+    """The entries and the bytes (values, indices, pointers) of `matrices`
+    (sparse or dense; None skipped)."""
+    nnz = nbytes = 0
+    for m in matrices:
+        if m is None:
+            continue
+        if _sp.issparse(m):
+            nnz += m.nnz
+            nbytes += sum(a.nbytes for a in (getattr(m, n, None) for n in
+                                             ("data", "indices", "indptr", "row", "col"))
+                          if isinstance(a, np.ndarray))
+        else:
+            a = np.asarray(m)
+            nnz += int(np.count_nonzero(a))
+            nbytes += a.nbytes
+    return {"nnz": int(nnz), "bytes": int(nbytes)}
+
+
+def _host_transformed(inputs, transform, common: dict):
+    """One call of a similarity that works on the host before s_plus:
+    `transform()` gives (matrix1, its s_plus keyword arguments), then s_plus
+    runs on them with the `common` ones. With ``splus.TIMING`` on, the
+    call's root span opens here, the transform runs in its child span
+    ``transform`` (``attrs``: the ``nnz`` and ``bytes`` of `inputs`, the
+    matrices it reads) ahead of s_plus's laps, and s_plus opens no second
+    root."""
+    with _spans.call(_splus.TIMING):
+        with _spans.span("transform") as span:
+            matrix1, kwargs = transform()
+            if _spans.ACTIVE:
+                span.attrs.update(_sparse_footprint(inputs))
+        return _engine_s_plus(matrix1, **kwargs, **common)
+
+
+def _p3_general(matrix1, matrix2, alpha, extensions):
+    """The published transform: each side's rows L1-normalized, then raised
+    to alpha; returns (matrix1, {matrix2})."""
     if matrix2 is None:
         matrix2 = matrix1.T
     device = extensions.get("device", "cuda")
@@ -312,30 +362,18 @@ def p3alpha(
     matrix1.data = np.power(matrix1.data, alpha)
     matrix2 = _normalize(matrix2, norm="l1", axis=1, inplace=False, device=device)
     matrix2.data = np.power(matrix2.data, alpha)
-    return _engine_s_plus(
-        matrix1,
-        matrix2=matrix2,
-        **_common_kwargs(
-            k, shrink, shrink_type, threshold, binary, target_rows, target_cols,
-            filter_cols, verbose, format_output, num_threads, block_size, extensions,
-        ),
-    )
+    return matrix1, {"matrix2": matrix2}
 
 
-def _p3_symmetric(
-    matrix1, alpha, pop_m2, beta, k, shrink, shrink_type, threshold, binary,
-    target_rows, target_cols, filter_cols, verbose, format_output,
-    num_threads, block_size, extensions,
-):
-    """p3alpha/rp3beta as a value-symmetric self-similarity call.
+def _p3_symmetric(matrix1, alpha, pop_m2, beta):
+    """p3alpha/rp3beta as a value-symmetric self-similarity call; returns
+    (A, its s_plus keyword arguments).
 
     A = m^alpha * c^(-alpha/2) per user column (c = user interaction
     sums); the row normalization becomes a row-side depop r^alpha and
     rp3beta's popularity penalty stays the column-side depop pop^beta.
     Exact for shrink == 0 (a nonzero stabilized shrink enters the
     denominator differently in the two formulations)."""
-    import scipy.sparse as _sp
-
     m = matrix1.tocsr() if _sp.issparse(matrix1) else _sp.csr_matrix(matrix1)
     r = np.asarray(np.abs(m).sum(axis=1)).ravel().astype(np.float64)
     c = np.asarray(np.abs(m).sum(axis=0)).ravel().astype(np.float64)
@@ -346,6 +384,7 @@ def _p3_symmetric(
     a_mat = _sp.csr_matrix(a_mat.multiply(cf[None, :]), dtype=np.float32)
     depop1 = np.power(np.where(r > 0, r, 1.0), alpha).astype(np.float32)
     kwargs = dict(
+        matrix2=None,
         weight_depop_matrix1=depop1,
         p1=1.0,
         l3=1,
@@ -355,16 +394,7 @@ def _p3_symmetric(
     else:
         kwargs.update(weight_depop_matrix2=np.ones(m.shape[0], np.float32),
                       p2=1.0)
-    return _engine_s_plus(
-        a_mat,
-        matrix2=None,
-        **kwargs,
-        **_common_kwargs(
-            k, shrink, shrink_type, threshold, binary, target_rows,
-            target_cols, filter_cols, verbose, format_output, num_threads,
-            block_size, extensions,
-        ),
-    )
+    return a_mat, kwargs
 
 
 def rp3beta(
@@ -389,30 +419,20 @@ def rp3beta(
     """Top-K RP3beta: P3alpha with item-popularity penalization
     (reference: similarity.py:477-503). Self-similar shrink-free calls
     take the value-symmetric refactoring (see p3alpha)."""
-    if matrix2 is None and shrink == 0 and not binary:
-        # signed sum, matching the reference's pop_m2 = m2.sum(axis=0)
-        # (similarity.py:479) and the general path below
-        pop = np.asarray(matrix1.T.sum(axis=0)).ravel().astype(np.float32)
-        return _p3_symmetric(
-            matrix1, alpha, pop, beta, k, shrink, shrink_type, threshold,
-            binary, target_rows, target_cols, filter_cols, verbose,
-            format_output, num_threads, block_size, extensions,
-        )
-    if matrix2 is None:
-        matrix2 = matrix1.T
-    pop_m2 = np.asarray(matrix2.sum(axis=0)).ravel()
-    device = extensions.get("device", "cuda")
-    matrix1 = _normalize(matrix1, norm="l1", axis=1, inplace=False, device=device)
-    matrix1.data = np.power(matrix1.data, alpha)
-    matrix2 = _normalize(matrix2, norm="l1", axis=1, inplace=False, device=device)
-    matrix2.data = np.power(matrix2.data, alpha)
-    return _engine_s_plus(
-        matrix1,
-        matrix2=matrix2,
-        weight_depop_matrix2=pop_m2,
-        p2=beta,
-        l3=1,
-        **_common_kwargs(
+
+    def transform():
+        if matrix2 is None and shrink == 0 and not binary:
+            # signed sum, matching the reference's pop_m2 = m2.sum(axis=0)
+            # (similarity.py:479) and the general path below
+            pop = np.asarray(matrix1.T.sum(axis=0)).ravel().astype(np.float32)
+            return _p3_symmetric(matrix1, alpha, pop, beta)
+        pop_m2 = np.asarray((matrix1.T if matrix2 is None else matrix2).sum(axis=0)).ravel()
+        m1, kwargs = _p3_general(matrix1, matrix2, alpha, extensions)
+        return m1, dict(kwargs, weight_depop_matrix2=pop_m2, p2=beta, l3=1)
+
+    return _host_transformed(
+        (matrix1, matrix2), transform,
+        _common_kwargs(
             k, shrink, shrink_type, threshold, binary, target_rows, target_cols,
             filter_cols, verbose, format_output, num_threads, block_size, extensions,
         ),

@@ -52,6 +52,8 @@ def _clean(monkeypatch):
     monkeypatch.setattr(splus, "TIMING", False)
     tsim.clear_caches()
     spans.clear()
+    # a traced call of another test file on this worker leaves its laps
+    splus.last_laps.clear()
     yield
     tsim.clear_caches()
     spans.clear()
@@ -150,6 +152,77 @@ def test_results_are_bit_equal_with_tracing_on_and_off(route):
     on = _traced(ROUTES[route])
     for a, b in ((off.row, on.row), (off.col, on.col), (off.data, on.data)):
         np.testing.assert_array_equal(a, b)
+
+
+def _rp3beta_high():
+    return tsim.rp3beta(URM.T, alpha=1.0, beta=0.6, k=10, precision="high", **CPU)
+
+
+def _p3alpha_general():
+    return tsim.p3alpha(URM.T, URM, alpha=0.8, k=10, **CPU)
+
+
+TRANSFORMED = {"rp3beta_high": _rp3beta_high, "p3alpha_general": _p3alpha_general}
+
+
+@pytest.mark.parametrize("name", list(TRANSFORMED))
+def test_a_transformed_call_has_one_root_and_its_transform_first(name):
+    _traced(TRANSFORMED[name])
+    (tree,) = _calls().values()
+    root = tree[0]
+    assert [s.name for s in tree if s.parent is None] == ["call"]
+    children = [s for s in tree if s.parent == root.id]
+    assert [s.name for s in children] == ["transform"] + LAPS
+    transform = children[0]
+    assert root.start <= transform.start <= transform.end <= children[1].start
+    csr_bytes = URM.data.nbytes + URM.indices.nbytes + URM.indptr.nbytes
+    n_inputs = 1 if name == "rp3beta_high" else 2
+    assert transform.attrs == {"nnz": n_inputs * URM.nnz, "bytes": n_inputs * csr_bytes}
+    assert root.attrs["route"] == executor.last_route
+    # matrix2 given: a route of two matrices (the fixture turns compaction on)
+    assert root.attrs["route"] == ("symmetric" if name == "rp3beta_high" else "compact")
+    # the laps read as for any call, the transform not among them
+    laps = children[1:]
+    assert list(splus.last_laps) == LAPS
+    assert list(splus.last_laps.values()) == [s.end - s.start for s in laps]
+
+
+def test_a_high_call_splits_its_coo_inside_the_stage():
+    _traced(_rp3beta_high)
+    (tree,) = _calls().values()
+    by_id = {s.id: s for s in tree}
+    splits = [s for s in tree if s.name == "split"]
+    assert splits and all(by_id[s.parent].name == "stage" for s in splits)
+    assert {by_id[s.parent].attrs["kind"] for s in splits} == {"sym_coo"}
+    # the hi and lo halves of every entry of the staged tile COO (padding included)
+    assert all(s.attrs["entries"] > 0 and s.attrs["entries"] % 2 == 0 for s in splits)
+    assert executor.last_plan["f32x3"] == "both" and executor.last_plan["asym"]
+    assert tree[0].attrs["k2"] == {} and tree[0].attrs["k2_asym"] == 0  # no card
+
+
+@pytest.mark.parametrize("name", list(TRANSFORMED))
+def test_a_transformed_call_records_nothing_with_timing_off(name):
+    TRANSFORMED[name]()
+    assert spans.log() == [] and not spans.ACTIVE
+    assert splus.last_laps == {}
+
+
+@pytest.mark.parametrize("name", list(TRANSFORMED))
+def test_a_transformed_call_gives_the_same_result_traced(name):
+    off = TRANSFORMED[name]()
+    tsim.clear_caches()
+    on = _traced(TRANSFORMED[name])
+    for a, b in ((off.row, on.row), (off.col, on.col), (off.data, on.data)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_a_failed_transformed_call_closes_its_root():
+    with pytest.raises(ValueError):
+        _traced(lambda: tsim.rp3beta(URM.T, k=0, **CPU))
+    assert not spans.ACTIVE
+    (tree,) = _calls().values()
+    assert [s.name for s in tree] == ["call", "transform", "validate"]
+    assert all(s.end is not None for s in tree)
 
 
 def test_spans_open_cpu_side_profiler_ranges_while_it_records(tmp_path):
