@@ -44,7 +44,8 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
              extremes, bf16 with the bias on the wgmma kernel's edges
              (tests/torch_k3_cases.py). K4:
              every dtype, repeated and unsorted ids and the last row, rows not
-             16-byte aligned. K5: every mode with sentinel padding. int8
+             16-byte aligned. K5: every mode with sentinel padding, int8
+             also K-major. int8
              bit-equal (through pow: 2 ulp), f32/bf16 values within rtol 1e-5,
              ids equal where values are not tied; K4 rows and K5 tiles
              bit-equal; the errors held to PARITY_MAXIMA (the mma.sync
@@ -108,13 +109,16 @@ toolkit (nvcc) and PyTorch built for CUDA. Imports neither JAX nor
              call's wall and each rank's launches are printed
   4 times    at the main path's shapes: K2 on a live off-diagonal block and a
              diagonal block (f32), a live block in bf16 (the f32 build's
-             geometry), in split-bf16x3 (the 'high' build's) and in int8, K5
-             on one inner tile, K1 on a 1,024-item cosine panel (f32, int8,
+             geometry), in split-bf16x3 (the 'high' build's) and in int8
+             (live and diagonal, K-major operands as the executor hands
+             them, with `mma_sync_ms`, the retired mma.sync kernel's time
+             at the block, beside), K5 on one inner tile (int8 K-major), K1 on a 1,024-item cosine panel (f32, int8,
              bf16, split 'both') and a recommend panel (f32; split 'rhs' on
              the raw ratings), K3 on a panel of the
              largest cold bucket of the 8,192-item cosine (f32, int8 and
              bf16) and K4 on its gather: kernel, bound, plain and library
-             (K2: torch.matmul + epilogue + torch.topk on both sides, bf16
+             (K2: torch.matmul, or torch._int_mm on the K-major operands,
+             + epilogue + torch.topk on both sides, bf16
              and split as one cuBLAS bf16 product with an f32 result per
              phase, `library_chain` naming the call; K5:
              index_put_; K1: torch.matmul, torch._int_mm or one cuBLAS bf16
@@ -258,6 +262,11 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 POW_RTOL = 2.0**-22  # int8 values through pow: two ulp (tests/torch_k1_cases.py)
+# K2's int8 block (tc 4,096, u_pad 200,960) on the mma.sync kernel that
+# wgmma s8 replaced, product and both merges, ms, by this script's _time_k2
+# on an NVIDIA H100 80GB HBM3 at 700 W: the live block PERF.md §6 gives,
+# and the mean of two readings of the diagonal block (15.451, 15.338)
+K2_INT8_MMA_SYNC_MS = {"live off-diagonal": 16.693, "diagonal": 15.395}
 # Ceilings on the parity errors, from this script's runs of the mma.sync
 # bf16 products that the wgmma kernels replaced (an H100 80GB HBM3 at
 # 700 W): K1's split modes on their card cases (measured 5.9446e-07
@@ -517,12 +526,15 @@ def parity_k5(torch, sc, dev):
             ru[t, :n], sl[t, :n] = cells // tc, cells % tc
             vv[t, :n] = rng.integers(-6, 7, n) if name == "int8" else rng.random(n) + 0.1
         args = [torch.from_numpy(a).to(dev) for a in (ru, sl, vv)]
-        got = sc.densify_tiles(*args, u_pad=u_pad, tc=tc, cdt=dt)
-        ref = sc.densify_tiles_plain(*args, u_pad=u_pad, tc=tc, cdt=dt)
-        _sync(torch, dev)
-        if got.dtype != dt or not torch.equal(got, ref):
-            raise AssertionError(f"parity K5 {name}: tiles differ from the plain version")
-        cases += 1
+        # int8 also K-major, (tc, u_pad) tiles: K2's int8 operands
+        for layout in ("mn", "kmajor") if name == "int8" else ("mn",):
+            got = sc.densify_tiles(*args, u_pad=u_pad, tc=tc, cdt=dt, layout=layout)
+            ref = sc.densify_tiles_plain(*args, u_pad=u_pad, tc=tc, cdt=dt, layout=layout)
+            _sync(torch, dev)
+            if got.dtype != dt or not torch.equal(got, ref):
+                raise AssertionError(f"parity K5 {name} {layout}: tiles differ from the plain "
+                                     "version")
+            cases += 1
     return {"cases": cases, "max_abs_err": 0.0}
 
 
@@ -1439,12 +1451,16 @@ def _time_k2(torch, st, sc, coo, vecs, plan, params, mode, diagonal):
     cdt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8,
            "split": torch.bfloat16}[mode]
     tile_k = 2 * u_pad if split else u_pad  # a split tile's [hi; lo] rows
-    anchors = sc.densify_tiles(coo["ru"][:gt], coo["sl"][:gt], coo["vv"][:gt],
-                               u_pad=tile_k, tc=tc, cdt=cdt)
+    # int8 as the executor hands it: K-major tiles (tc, u_pad), the anchors
+    # as their (sw, u_pad) stack and the tile as its transposed view
+    layout = "kmajor" if int8 else "mn"
+    tiles = sc.densify_tiles(coo["ru"][:gt], coo["sl"][:gt], coo["vv"][:gt],
+                             u_pad=tile_k, tc=tc, cdt=cdt, layout=layout)
     t = 0 if diagonal else plan["n_tiles"] - 1
-    d = anchors[0] if diagonal else sc.densify_tiles(
+    d = tiles[0] if diagonal else sc.densify_tiles(
         coo["ru"][t:t + 1], coo["sl"][t:t + 1], coo["vv"][t:t + 1], u_pad=tile_k, tc=tc,
-        cdt=cdt)[0]
+        cdt=cdt, layout=layout)[0]
+    anchors, d = (tiles.view(sw, tile_k), d.T) if int8 else (tiles, d)
     pv = np.zeros(16, np.float32)
     pv[:10] = build_pvec(params, 0.25 if int8 else 1.0)
     pv[10:14] = (t * tc, 0, t, 0)
@@ -1479,9 +1495,9 @@ def _time_k2(torch, st, sc, coo, vecs, plan, params, mode, diagonal):
     from similaripy_tpu_torch.engine.tile_topk import splus_epilogue
 
     pvl = pv.tolist()
-    a2 = anchors.transpose(1, 2).reshape(sw, tile_k)  # (sw, tile_k), a view for gt = 1
-    if int8:
-        a2 = a2.contiguous()  # cuBLASLt's int8 product takes row-major operands
+    # (sw, tile_k): a view for gt = 1; int8's K-major stack as it is, and its
+    # K-major tile is the column-major rhs that cuBLASLt's int8 product takes
+    a2 = anchors if int8 else anchors.transpose(1, 2).reshape(sw, tile_k)
 
     def library():
         if int8:
@@ -1503,8 +1519,11 @@ def _time_k2(torch, st, sc, coo, vecs, plan, params, mode, diagonal):
               + 2 * 8.0 * k_pad * (sw + tc))  # carries in and out, values and ids
     bound_ms, bound_by = _bound(ops, nbytes, int8,
                                 PEAK_BF16_FLOPS if mode in ("bf16", "split") else None)
+    block = "diagonal" if diagonal else "live off-diagonal"
     return {
-        "block": "diagonal" if diagonal else "live off-diagonal",
+        "block": block,
+        # int8: the retired mma.sync kernel's time at this block, beside
+        "mma_sync_ms": K2_INT8_MMA_SYNC_MS[block] if int8 else None,
         "shape": {"sw": sw, "tc": tc, "u_pad": u_pad, "k_pad": k_pad, "t": t,
                   "dtype": "split-bf16x3 both" if split else str(cdt).replace("torch.", "")},
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -1561,31 +1580,34 @@ def _split_line(phase, out, keys, attrs):
 
 
 def _time_k5(torch, sc, coo, plan, int8):
-    """K5 on one inner tile of the main path."""
+    """K5 on one inner tile of the main path, in the path's layout (int8
+    K-major)."""
     tc, u_pad = plan["tc"], plan["u_pad"]
     cdt = torch.int8 if int8 else torch.float32
+    kw = dict(u_pad=u_pad, tc=tc, cdt=cdt, layout="kmajor" if int8 else "mn")
     t = plan["n_tiles"] - 1
     ru, sl, vv = coo["ru"][t:t + 1], coo["sl"][t:t + 1], coo["vv"][t:t + 1]
-    got = sc.densify_tiles(ru, sl, vv, u_pad=u_pad, tc=tc, cdt=cdt)
-    ref = sc.densify_tiles_plain(ru, sl, vv, u_pad=u_pad, tc=tc, cdt=cdt)
+    got = sc.densify_tiles(ru, sl, vv, **kw)
+    ref = sc.densify_tiles_plain(ru, sl, vv, **kw)
     if not torch.equal(got, ref):
         raise AssertionError("times K5: tile differs from the plain version")
     keep = ru[0] < u_pad
-    flat = ru[0][keep].long() * tc + sl[0][keep].long()
+    users, slots = ru[0][keep].long(), sl[0][keep].long()
+    flat = slots * u_pad + users if int8 else users * tc + slots
     vals = vv[0][keep].to(cdt)
 
     def library():
         out = torch.zeros(u_pad * tc, dtype=cdt, device=ru.device)
         return out.index_put_((flat,), vals, accumulate=True)
 
-    kernel_ms = _time_ms(torch, lambda: sc.densify_tiles(ru, sl, vv, u_pad=u_pad, tc=tc, cdt=cdt), 5)
-    plain_ms = _time_ms(torch, lambda: sc.densify_tiles_plain(ru, sl, vv, u_pad=u_pad, tc=tc, cdt=cdt), 3)
+    kernel_ms = _time_ms(torch, lambda: sc.densify_tiles(ru, sl, vv, **kw), 5)
+    plain_ms = _time_ms(torch, lambda: sc.densify_tiles_plain(ru, sl, vv, **kw), 3)
     library_ms = _time_ms(torch, library, 5)
     nbytes = 12.0 * ru.shape[1] + u_pad * tc * got.element_size()
     bound_ms, bound_by = _bound(0.0, nbytes, int8)
     return {
         "shape": {"u_pad": u_pad, "tc": tc, "p2": int(ru.shape[1]), "entries": int(keep.sum()),
-                  "dtype": "int8" if int8 else "float32"},
+                  "dtype": "int8" if int8 else "float32", "layout": kw["layout"]},
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "kernel_gbps": nbytes / kernel_ms / 1e6, "max_abs_err": 0.0,
@@ -1722,6 +1744,8 @@ def phase_times(torch, sim, tt, st, sc, urm, state):
     coo, vecs = _sym_setup(torch, urm.T.tocsr(), "int8", plans["cosine_int8"], **cos_prep)
     out["K2_int8_live"] = _time_k2(torch, st, sc, coo, vecs, plans["cosine_int8"], cos, "int8",
                                    False)
+    out["K2_int8_diagonal"] = _time_k2(torch, st, sc, coo, vecs, plans["cosine_int8"], cos,
+                                       "int8", True)
     out["K5_int8"] = _time_k5(torch, sc, coo, plans["cosine_int8"], True)
     del coo, vecs
     # K2's per-launch split of each timed block, and its product kernels'
@@ -1730,7 +1754,7 @@ def phase_times(torch, sim, tt, st, sc, urm, state):
           "blocks": {k: {**out[k]["split"], "product_kernel": out[k]["product_kernel"],
                          "kernel_ms": out[k]["kernel_ms"], "tops": out[k]["kernel_tops"]}
                      for k in ("K2_f32_live", "K2_f32_diagonal", "K2_bf16_live", "K2_split_live",
-                               "K2_int8_live")},
+                               "K2_int8_live", "K2_int8_diagonal")},
           "product_kernels": {**{str(dt).replace("torch.", ""): st.product_attrs(dt)
                                  for dt in (torch.float32, torch.bfloat16, torch.int8)},
                               "split": st.product_attrs(torch.bfloat16, split=True)}})
@@ -2553,6 +2577,7 @@ def main() -> int:
                         times["K2_f32_diagonal"]["max_abs_err"],
                         times["K2_bf16_live"]["max_abs_err"],
                         times["K2_int8_live"]["max_abs_err"],
+                        times["K2_int8_diagonal"]["max_abs_err"],
                         *parity["K2"]["max_abs_err"].values()),
         "scatter": 0.0,
         "panel_topk": max(times["K3_f32"]["max_abs_err"], times["K3_int8"]["max_abs_err"],

@@ -10,7 +10,7 @@ collectives of every rank, the busiest rank's 1/N speed-ups, and its
 modeled seconds by the planner's own cost model,
 
     K2 blocks x (gt tc) tc u_pad 2 / symmetric._PRODUCT_RATE[dtype]
-  + K5 tiles x nnz_tile / symmetric._DENSIFY_NNZ_RATE,
+  + K5 tiles x nnz_tile / symmetric._DENSIFY_NNZ_RATE[dtype],
 
 so the table and the planner cannot disagree: summed over the ranks, the
 K2 blocks and K5 tiles are the planner's ``_triangle_counts``. A K5 tile
@@ -83,7 +83,7 @@ def anatomy_table(C: int, U: int, nnz: int, n_list=(1, 2, 4, 8), budget: int = B
     n_real = math.ceil(C / tc)
     n_tiles = math.ceil(n_real / gt) * gt
     t_block = (gt * tc) * tc * u_pad * 2 / symmetric._PRODUCT_RATE[compute_dtype]
-    t_tile = plan_nnz / n_real / symmetric._DENSIFY_NNZ_RATE
+    t_tile = plan_nnz / n_real / symmetric._DENSIFY_NNZ_RATE[compute_dtype]
     # a pair's rows are all-gathered once; over the schedule every device
     # slot's row is, k entries each; plus the budget agreement's one int64
     topk_bytes = n_tiles * tc * min(k, C) * ENTRY_BYTES

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the bf16 tensor-core products of K1/K3
 // (tile_kernels.cuh: tile_wgmma_kernel), K2 and P1 (mn_products.cuh:
-// mn_wgmma_block) and of the int8 products of the probes P1 and P2
-// (probe_tlhs.cu, probe_int_mma.cu), in inline PTX: mbarriers, TMA tensor
+// mn_wgmma_block) and of the int8 products of K2 (sym_topk.cu) and of the
+// probes P1 and P2 (probe_tlhs.cu, probe_int_mma.cu), in inline PTX: mbarriers, TMA tensor
 // loads, the wgmma shared-memory descriptor of 128-byte-swizzled operands,
 // wgmma.mma_async m64n128k16 bf16 -> f32 and m64n256k32 s8 -> s32 with
 // their fence, commit and wait, the cluster pieces of the block pairs
@@ -454,7 +454,8 @@ constexpr size_t WG_S8_SMEM =
 // stage, bar, rank) issues slab s's boxes, A's box `rank` multicast into
 // both blocks. Consumer warpgroup wg multiplies A's box wg by B's 256 rows
 // (one K-major operand of 32 KB, SBO 1024) with m64n256k32: 128 int32
-// totals a thread (154 registers; no spill). int32 sums are exact in any
+// totals a thread (154 registers with P1's store, 164 with K2's epilogue;
+// no spill). int32 sums are exact in any
 // order, so every wgmma adds straight into the total (scale-d 1 on zeroed
 // registers: no per-slab partial), and a slab's wgmmas stay in flight while
 // the next slab's are issued: a slab is released once the group after it
@@ -578,8 +579,8 @@ inline cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base,
 }
 
 // A K-major int8 operand, `rows` rows of k_pad bytes (k_pad a multiple of
-// 128, rows 16-byte aligned), read in boxes of 128 K bytes x 64 rows (rows
-// past the end read as zeros)
+// 16, the row stride TMA takes; rows 16-byte aligned), read in boxes of 128
+// K bytes x 64 rows (bytes past k_pad and rows past the end read as zeros)
 inline cudaError_t s8_kmajor_map(CUtensorMap* map, const void* base, int k_pad, int rows) {
   return sw128_tensor_map<2>(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base,
                              {(cuuint64_t)k_pad, (cuuint64_t)rows}, {(cuuint64_t)k_pad},

@@ -20,8 +20,8 @@
 //         boxes of 128 K bytes x 64 rows, in cluster pairs of two column
 //         blocks that multicast A. The pass runs apart from the product so
 //         that its time (bytes) and the product's (operations) are read
-//         separately; the product on K-major tiles is what K2's int8 would
-//         cost if its tiles were written K-major.
+//         separately; K2's int8 product (sym_topk.cu) runs the same block
+//         on tiles that K5 writes K-major, so it needs no pass.
 //   f32   rows of 16-byte multiples (M, N multiples of 4, 16-byte aligned
 //         operands): tlhs_simt_ring_kernel, K2's SIMT product
 //         (mn_products.cuh: mn_simt_block, a 3-slab cp.async ring, one

@@ -8,7 +8,9 @@
 // kernel does that directly: G tiles' padded COO (ru user, sl slot, vv
 // value, each G x p2) land in a (G, u_pad, tc) stack of f32, bf16 or int8.
 // Entries with a user outside [0, u_pad) are the padding sentinels and land
-// nowhere (slots outside [0, tc) are dropped the same way).
+// nowhere (slots outside [0, tc) are dropped the same way). The wrapper
+// (engine/scatter.py) also launches it with the roles of user and slot
+// swapped, which writes (G, tc, u_pad) K-major tiles for K2's int8 product.
 //
 // Duplicates: the port's CSR coercion (ops/csr.py::ensure_csr_f32) keeps
 // duplicate entries as SciPy holds them and does not sum them, so a tile may

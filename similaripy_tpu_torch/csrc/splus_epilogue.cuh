@@ -23,7 +23,9 @@ enum Mode {
 
 // the product kernels a launch may take, as the launch wrappers count them
 // (engine/tile_topk.py: PRODUCT_KERNELS)
-enum ProductKernel { PK_SIMT = 0, PK_MMA_S8 = 1, PK_MMA_BF16 = 2, PK_WGMMA_BF16 = 3 };
+enum ProductKernel {
+  PK_SIMT = 0, PK_MMA_S8 = 1, PK_MMA_BF16 = 2, PK_WGMMA_BF16 = 3, PK_WGMMA_S8 = 4
+};
 
 // epilogue flags, the order of SPlusParams.static_flags()
 enum Flag {

@@ -6,6 +6,8 @@
 // body _sym_kernel, shared epilogue _epilogue_val). The anchors are an
 // anchor group of sw = gt * tc item rows starting at tile a0, stored as the
 // executor's dense (gt, K, tc) tiles; d is the (K, tc) dense inner tile t.
+// int8 takes both K-major instead: the anchors as (sw, K) rows, d as (tc,
+// K) rows, which K5 writes so (engine/scatter.py, layout "kmajor").
 // With xy = anchors . d (the shared user axis contracted):
 //   row side  anchor rows whose tile rt = a0 + row / tc satisfies rt <= t
 //             take tile t's columns (ids col_base + col): only values above
@@ -33,17 +35,17 @@
 //
 // Three launches:
 //   1. the product with the fused epilogue, one output block per thread
-//      block (both operands are (K, tc) row-major: a block's 128 anchor rows
-//      are 128 columns of one anchor tile), skipping row blocks below the
-//      band. f32 and int8 stream both operands through a ring of STAGES = 3
-//      shared-memory slabs filled by 16-byte cp.async copies (rows past K
-//      and columns past tc zero-filled), two slabs ahead of the one in use,
-//      with one barrier per slab; bf16 through TMA. The epilogue writes the
-//      row-side scores (sw x tc)
-//      and, for rows with rt < t, the col-side scores transposed (tc x sw)
-//      to scratch that the wrapper allocates.
-//      The f32 and bf16 products are csrc/mn_products.cuh's, which P1
-//      (probe_tlhs.cu) runs too with a store for its epilogue.
+//      block, skipping row blocks below the band. f32 streams both operands
+//      ((K, tc) row-major: a block's 128 anchor rows are 128 columns of one
+//      anchor tile) through a ring of 3 shared-memory slabs filled by
+//      16-byte cp.async copies (rows past K and columns past tc
+//      zero-filled), two slabs ahead of the one in use, with one barrier
+//      per slab; bf16, split and int8 through TMA. The epilogue writes the
+//      row-side scores (sw x tc) and, for rows with rt < t, the col-side
+//      scores transposed (tc x sw) to scratch that the wrapper allocates.
+//      The products are shared with P1 (probe_tlhs.cu), which runs them
+//      with a store for its epilogue: f32 and bf16 csrc/mn_products.cuh's,
+//      int8 hopper.cuh's wgmma_block_s8.
 //        f32        sym_simt_kernel: 128 x 128 blocks, SIMT FMA, 8 x 8
 //                   outputs a thread, 32 K rows a slab; the (K, tc) slab is
 //                   already the outer product's layout. Each output is one
@@ -74,20 +76,16 @@
 //                   operands, and each k16 step runs hi.hi, lo.hi and hi.lo
 //                   into one partial that the slab's first wgmma zeroes and
 //                   that joins the f32 total once per slab.
-//        int8       sym_s8_kernel: 128 x 256 blocks, mma.sync m16n8k32 s8
-//                   -> s32 (exact), 8 warps of 64 x 64, 128 K bytes a slab,
-//                   one block per SM (128 accumulators a thread). mma.sync
-//                   wants k-contiguous words and the slab holds (k, m)
-//                   bytes, so each warp reads its fragments straight from the
-//                   arrived slab as 4 (k) x 4 (m) byte blocks and transposes
-//                   them in registers (transpose4x4, csrc/tensor_core.cuh).
-//                   The four words of a block are four columns, so a
-//                   fragment row (column) stands for a permuted column of
-//                   the warp's 64: one block gives a word to each of four
-//                   mma tiles, with no staging buffer and no second barrier,
-//                   and the epilogue maps the permutation back. The slab's
-//                   16-byte chunks are XOR-swizzled by bits 2..3 of the row
-//                   so that these reads hit 32 banks.
+//        int8       sym_s8_kernel: 128 x 256 blocks, wgmma.mma_async
+//                   m64n256k32 s8 -> s32 (exact in any order) in
+//                   hopper.cuh's wgmma_block_s8: the same warp-specialised
+//                   block and cluster pairs that multicast the anchors, a
+//                   ring of 4 slabs of 128 K bytes, each TMA box 128 K bytes
+//                   of 64 rows of a 2D map (K, rows), so past K it reads
+//                   zeros. 8-bit wgmma reads K-major operands only, and the
+//                   executor densifies int8 tiles K-major, so neither
+//                   operand is transposed on the card. 128 s32 totals a
+//                   consumer thread; the epilogue scales each by pvec[9].
 //   2. merge_kernel<true>: one block per anchor row, K1's survivor sort and
 //      carry merge over the row-side plane.
 //   3. merge_kernel<false>: one block per tile column over the transposed
@@ -96,26 +94,25 @@
 //      each chunk keeps the values above the running kth, sorts them and
 //      merges them into the running list in shared memory.
 // Shapes: tc a multiple of 128 (the executor's) and 16-byte aligned
-// operands, else the launch returns cudaErrorInvalidValue; any K.
-// Given away for later work: wgmma for int8 (an 8-bit operand must be
-// K-major in swizzled shared memory, and both of K2's are (k, m) rows), a
-// persistent grid (below-band row blocks are launched and exit at once),
-// TMA for the f32 and int8 rings, and keeping the scores on chip instead of
-// a round trip through device memory.
+// operands, else the launch returns cudaErrorInvalidValue; any K (int8: a
+// multiple of 16, the row stride TMA takes).
+// What bounds the int8 product now: the tensor cores' rate, less the
+// epilogue, which runs after the block's last slab with the ring idle, and
+// the tail of a grid of 128 x 256 blocks over 132 SMs. Given away for later
+// work: a persistent grid (below-band row blocks are launched and exit at
+// once, and one block's epilogue could overlap the next block's loads),
+// TMA for the f32 ring, and keeping the scores on chip instead of a round
+// trip through device memory.
 
 #include "hopper.cuh"
 #include "mn_products.cuh"
 #include "splus_epilogue.cuh"
-#include "tensor_core.cuh"
 
 namespace {
 
 constexpr int BM = 128;       // output rows per block
-constexpr int BN = 128;       // output columns per block (f32, bf16)
-constexpr int S8_BN = 256;    // output columns per block (int8)
-constexpr int THREADS = 256;  // 8 warps
-constexpr int STAGES = 3;     // slabs in the int8 shared-memory ring
-constexpr int IBK = 128;      // int8: K bytes per slab, four k32 steps
+constexpr int BN = 128;       // output columns per block (f32, bf16; int8 WG_S8_BN)
+constexpr int THREADS = 256;  // 8 warps (f32)
 constexpr int MERGE_THREADS = 512;
 constexpr int MAX_CHUNK = 16384;  // candidates sorted at once (128 KB of keys)
 constexpr int MAX_SMEM = 227 * 1024;
@@ -248,135 +245,46 @@ __global__ void __launch_bounds__(WG_THREADS, 1) sym_wgmma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// int8: mma.sync m16n8k32 on the tensor cores
+// int8: wgmma s8 fed by TMA (hopper.cuh: wgmma_block_s8, shared with P1)
 // ---------------------------------------------------------------------------
 
-constexpr size_t S8_SMEM = (size_t)STAGES * IBK * (BM + S8_BN);
-
-// Byte offset of 16-byte chunk `ch` of row `r` of an int8 slab whose rows
-// are W bytes: the chunk index is XORed with twice bits 2..3 of the row, so
-// a warp's fragment reads (rows 4 tig + q for tig 0..3, words of two
-// neighbouring chunks for g 0..7) fall in 8 distinct chunks, 32 banks.
-template <int W>
-__device__ __forceinline__ int swz(int r, int ch) {
-  return r * W + ((ch ^ (((r >> 2) & 3) << 1)) << 4);
-}
-
-// rows r0 .. r0 + 3 of 32-bit word `word` (four bytes of m), transposed:
-// w[j] holds the four k bytes of column 4 word + j
-template <int W>
-__device__ __forceinline__ void block4x4(uint32_t (&w)[4], const unsigned char* s, int r0,
-                                         int word) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    w[q] = *reinterpret_cast<const uint32_t*>(s + swz<W>(r0 + q, word >> 2) + (word & 3) * 4);
-  transpose4x4(w);
-}
-
-// One 128 x 256 block: 8 warps of 64 x 64 (4 m16 x 8 n8 tiles each), 128
-// accumulators a thread, so one block per SM.
-__global__ void __launch_bounds__(THREADS, 1) sym_s8_kernel(
-    const int8_t* __restrict__ a, const int8_t* __restrict__ d, int sw, int K, int tc, Epi e) {
-  constexpr int SA = IBK * BM, SD = IBK * S8_BN;  // bytes per operand and slab
-  constexpr int A_COPIES = SA / 16 / THREADS, D_COPIES = SD / 16 / THREADS;
-  constexpr int D_CHUNKS = S8_BN / 16;            // 16-byte chunks in a d slab row
+// One 128 x 256 block: ta is the anchors (sw, K) and td the tile (tc, K),
+// both K-major rows of K bytes, as 2D maps (K, rows) read in boxes {128,
+// 64}; a slab is 128 K bytes of the block's 128 anchor rows (two boxes) and
+// 256 tile columns (four boxes). The blocks run in cluster pairs, column
+// blocks 2i and 2i + 1 of one row block, and each brings one of the anchor
+// boxes to both. Consumer warpgroup wg owns anchor rows m0 + 64 wg .. + 63.
+__global__ void __launch_bounds__(WG_THREADS, 1) sym_s8_kernel(
+    const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap td, int sw,
+    int K, int tc, Epi e) {
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* as = smem;                   // [STAGES][IBK][BM], swizzled rows
-  unsigned char* ds = smem + STAGES * SA;     // [STAGES][IBK][S8_BN]
-
   const int n_live = live_rows(e.pvec, sw, tc);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * S8_BN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * WG_S8_BN;
   if (m0 >= n_live) return;  // below the band: the merge passes the carry
   const int n_col = col_rows(e.pvec, sw, tc);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 64;
-
-  // the block's anchor rows are columns m0 % tc .. + 128 of anchor tile
-  // m0 / tc; its tile columns n0 .. n0 + 256 of d, those past tc zero-filled
-  const int8_t* ab = a + (size_t)(m0 / tc) * K * tc + m0 % tc;
-  const int8_t* db = d + n0;
-  const int n_slabs = (K + IBK - 1) / IBK;
-
-  auto fetch = [&](int s) {
-    if (s < n_slabs) {
-      unsigned char* sa = as + (s % STAGES) * SA;
-      unsigned char* sd = ds + (s % STAGES) * SD;
+  wgmma_block_s8(
+      smem, (K + WG_S8_BK - 1) / WG_S8_BK,
+      [&](int s, unsigned char* st, uint64_t* bar, uint32_t rank) {
+        const int k0 = s * WG_S8_BK;
+        tma_load_2d_both(st + rank * BOX_BYTES, &ta, bar, k0, m0 + 64 * rank);
 #pragma unroll
-      for (int i = 0; i < A_COPIES; ++i) {
-        const int c = tid + i * THREADS, row = c >> 3, ch = c & 7;
-        const int k = s * IBK + row;
-        const bool full = k < K;
-        cp_async16(sa + swz<BM>(row, ch), full ? ab + (size_t)k * tc + ch * 16 : a, full);
-      }
+        for (int j = 0; j < WG_S8_BN / 64; ++j)
+          tma_load_2d(st + (2 + j) * BOX_BYTES, &td, bar, k0, n0 + 64 * j);
+      },
+      [&](const int (&acc)[128], int wg, int warp, int lane) {
+        // acc[4 j + 2 i + c] is row 8 i + g, column 8 j + 2 tig + c of the
+        // warp's 16 x 256 (hopper.cuh: wgmma_m64n256k32_s8)
+        const int g = lane >> 2, tig = lane & 3;
+        int rows[2], cols[64];
 #pragma unroll
-      for (int i = 0; i < D_COPIES; ++i) {
-        const int c = tid + i * THREADS, row = c / D_CHUNKS, ch = c % D_CHUNKS;
-        const int k = s * IBK + row;
-        const bool full = k < K && n0 + ch * 16 < tc;
-        cp_async16(sd + swz<S8_BN>(row, ch), full ? db + (size_t)k * tc + ch * 16 : d, full);
-      }
-    }
-    cp_async_commit();  // an empty group past the end keeps the count
-  };
-
-  int acc[4][8][4];
+        for (int i = 0; i < 2; ++i) rows[i] = m0 + 64 * wg + 16 * warp + 8 * i + g;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) fetch(s);
-  for (int s = 0; s < n_slabs; ++s) {
-    cp_async_wait<STAGES - 2>();  // slab s is in
-    __syncthreads();              // ... for every thread, and slab s - 1 is done with
-    fetch(s + STAGES - 1);        // into slab s - 1's place
-    const unsigned char* sa = as + (s % STAGES) * SA;
-    const unsigned char* sd = ds + (s % STAGES) * SD;
-#pragma unroll
-    for (int ks = 0; ks < IBK; ks += 32) {
-      // fragment row g of m-tile mi is column 4 g + mi of the warp's first
-      // 32, row g + 8 column 32 + 4 g + mi; column g of n-tile 4 h + j is
-      // column 32 h + 4 g + j of its 64
-      uint32_t af[4][4], bf[8][2];
-#pragma unroll
-      for (int kh = 0; kh < 2; ++kh) {  // k = ks + 16 kh + 4 tig .. + 3
-        const int r0 = ks + 16 * kh + 4 * tig;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          uint32_t w[4];
-          block4x4<BM>(w, sa, r0, wm / 4 + 8 * h + g);
-#pragma unroll
-          for (int mi = 0; mi < 4; ++mi) af[mi][h + 2 * kh] = w[mi];
-          block4x4<S8_BN>(w, sd, r0, wn / 4 + 8 * h + g);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bf[4 * h + j][kh] = w[j];
-        }
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // C row g + 8 hh of m-tile mi is anchor row wm + 32 hh + 4 g + mi; C
-  // column 2 tig + jj of n-tile ni is tile column wn + 32 (ni / 4) +
-  // 4 (2 tig + jj) + ni % 4
-  int rows[8], cols[16];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) rows[i] = m0 + wm + 32 * (i & 1) + 4 * g + (i >> 1);
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-    cols[j] = n0 + wn + 32 * (j >> 3) + 4 * (2 * tig + (j & 1)) + ((j >> 1) & 3);
-  const float inv_scale = e.pvec[9];
-  epilogue(e, sw, tc, n_live, n_col, rows, cols, [&](int i, int j) {
-    return __fmul_rn(__int2float_rn(acc[i >> 1][j >> 1][2 * (i & 1) + (j & 1)]), inv_scale);
-  });
+        for (int j = 0; j < 64; ++j) cols[j] = n0 + 8 * (j >> 1) + 2 * tig + (j & 1);
+        const float inv_scale = e.pvec[9];
+        epilogue(e, sw, tc, n_live, n_col, rows, cols, [&](int i, int j) {
+          return __fmul_rn(__int2float_rn(acc[4 * (j >> 1) + 2 * i + (j & 1)]), inv_scale);
+        });
+      });
 }
 
 // One block per output row; the outputs and the carry are (k_pad x M).
@@ -496,13 +404,14 @@ __global__ void __launch_bounds__(MERGE_THREADS) merge_kernel(
   }
 }
 
-template <typename... P, typename... A>
-cudaError_t launch_product(void (*kern)(P...), size_t smem, int bn, int sw, int tc,
-                           cudaStream_t stream, A... args) {
+// The f32 launch (sym_simt_kernel)
+cudaError_t launch_simt(const float* a, const float* d, int sw, int K, int tc, const Epi& e,
+                        cudaStream_t stream) {
+  const size_t smem = mn_simt_smem<float>();
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      sym_simt_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3((tc + bn - 1) / bn, sw / BM), THREADS, smem, stream>>>(args...);
+  sym_simt_kernel<float><<<dim3(tc / BN, sw / BM), THREADS, smem, stream>>>(a, d, sw, K, tc, e);
   return cudaGetLastError();
 }
 
@@ -525,6 +434,25 @@ cudaError_t launch_wgmma(const void* a, const void* d, int sw, int K, int tc, co
                       WgmmaRing<SPLIT>::SMEM, stream, args);
 }
 
+// The int8 launch (sym_s8_kernel): the anchors (sw, K) and the tile (tc, K)
+// as K-major tensor maps; with K = 0 no slab is loaded and the maps stay
+// unset.
+cudaError_t launch_s8(const void* a, const void* d, int sw, int K, int tc, const Epi& e,
+                      cudaStream_t stream) {
+  CUtensorMap ta{}, td{};
+  if (K > 0) {
+    cudaError_t err = s8_kmajor_map(&ta, a, K, sw);
+    if (err == cudaSuccess) err = s8_kmajor_map(&td, d, K, tc);
+    if (err != cudaSuccess) return err;
+  }
+  Epi ep = e;
+  void* args[] = {&ta, &td, &sw, &K, &tc, &ep};
+  // column blocks in pairs: an odd count's last pair has a block past tc
+  const int gx = (tc + WG_S8_BN - 1) / WG_S8_BN;
+  return launch_pairs(reinterpret_cast<const void*>(sym_s8_kernel),
+                      dim3((gx + 1) / 2 * 2, sw / BM), false, WG_S8_SMEM, stream, args);
+}
+
 template <bool ROW_SIDE>
 cudaError_t launch_merge(const void* scores, int M, int stride, int sw, int tc,
                          int k_pad, int cap, size_t smem, const void* pvec,
@@ -545,19 +473,21 @@ cudaError_t launch_merge(const void* scores, int M, int stride, int sw, int tc,
 
 extern "C" {
 
-// Launch 1: the masked epilogue scores of the anchors (a (sw / tc, K, tc)
-// tile stack) . d (K x tc) into scores_r (sw x tc) and, transposed,
-// scores_c (tc x sw). `vecs` holds twelve f32 pointers: xt xc
-// xd (sw), yt yc yd (tc), then x2t x2c x2d (tc) y2t y2c y2d (sw), the last
-// six null unless the epilogue is asymmetric. mode 0 = f32, 1 = bf16,
-// 2 = int8, 3 = split 'both' (bf16 [hi; lo] tiles of 2K rows; K is one
-// half's depth). tc must be a multiple of 128 and a and d 16-byte aligned.
-// `kind` receives the product kernel taken (ProductKernel).
+// Launch 1: the masked epilogue scores of the anchors . d into scores_r
+// (sw x tc) and, transposed, scores_c (tc x sw). f32, bf16 and split: the
+// anchors a (sw / tc, K, tc) tile stack, d (K x tc); int8: both K-major, a
+// (sw x K) and d (tc x K) row-major, K a multiple of 16. `vecs` holds twelve
+// f32 pointers: xt xc xd (sw), yt yc yd (tc), then x2t x2c x2d (tc) y2t y2c
+// y2d (sw), the last six null unless the epilogue is asymmetric. mode 0 =
+// f32, 1 = bf16, 2 = int8, 3 = split 'both' (bf16 [hi; lo] tiles of 2K
+// rows; K is one half's depth). tc must be a multiple of 128 and a and d
+// 16-byte aligned. `kind` receives the product kernel taken (ProductKernel).
 int sym_product(int mode, const void* a, const void* d, int sw, int K, int tc,
                 const void* const* vecs, const void* pvec, int flags,
                 void* scores_r, void* scores_c, void* stream, int* kind) {
   if (sw <= 0 || tc <= 0 || K < 0 || sw % tc != 0 || tc % BN != 0 ||
-      ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(d)) & 15) != 0)
+      ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(d)) & 15) != 0 ||
+      (mode == MODE_INT8 && K % 16 != 0))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [&](int i) { return static_cast<const float*>(vecs[i]); };
@@ -567,9 +497,8 @@ int sym_product(int mode, const void* a, const void* d, int sw, int K, int tc,
   switch (mode) {
     case MODE_F32:
       *kind = PK_SIMT;
-      return (int)launch_product(sym_simt_kernel<float>, mn_simt_smem<float>(), BN, sw, tc, s,
-                                 static_cast<const float*>(a), static_cast<const float*>(d),
-                                 sw, K, tc, e);
+      return (int)launch_simt(static_cast<const float*>(a), static_cast<const float*>(d), sw, K,
+                              tc, e, s);
     case MODE_BF16:
       *kind = PK_WGMMA_BF16;
       return (int)launch_wgmma<SPLIT_NONE>(a, d, sw, K, tc, e, s);
@@ -577,10 +506,8 @@ int sym_product(int mode, const void* a, const void* d, int sw, int K, int tc,
       *kind = PK_WGMMA_BF16;
       return (int)launch_wgmma<SPLIT_BOTH>(a, d, sw, K, tc, e, s);
     case MODE_INT8:
-      *kind = PK_MMA_S8;
-      return (int)launch_product(sym_s8_kernel, S8_SMEM, S8_BN, sw, tc, s,
-                                 static_cast<const int8_t*>(a), static_cast<const int8_t*>(d),
-                                 sw, K, tc, e);
+      *kind = PK_WGMMA_S8;
+      return (int)launch_s8(a, d, sw, K, tc, e, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -613,8 +540,9 @@ int sym_product_attrs(int mode, int* out) {
       break;
     case MODE_INT8:
       kern = reinterpret_cast<const void*>(sym_s8_kernel);
-      smem = S8_SMEM;
-      out[4] = PK_MMA_S8;
+      smem = WG_S8_SMEM;
+      threads = WG_THREADS;
+      out[4] = PK_WGMMA_S8;
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -55,12 +55,8 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
 }
 
 // w[i] holds bytes (i, 0..3) of a 4 x 4 byte block; afterwards w[j] holds
-// bytes (0..3, j): four pairs of byte permutes (PRMT). Compiled out by
-// -DNO_PRMT_TRANSPOSE, which only benchmarks/tlhs_transpose_cost.py passes,
-// for its own build of probe_tlhs.cu and sym_topk.cu (wrong products, the
-// same loads and stores: the control that times the pass).
+// bytes (0..3, j): four pairs of byte permutes (PRMT).
 __device__ __forceinline__ void transpose4x4(uint32_t (&w)[4]) {
-#ifndef NO_PRMT_TRANSPOSE
   const uint32_t x0 = __byte_perm(w[0], w[1], 0x5140);  // (0,0) (1,0) (0,1) (1,1)
   const uint32_t x1 = __byte_perm(w[0], w[1], 0x7362);  // (0,2) (1,2) (0,3) (1,3)
   const uint32_t y0 = __byte_perm(w[2], w[3], 0x5140);  // (2,0) (3,0) (2,1) (3,1)
@@ -69,7 +65,6 @@ __device__ __forceinline__ void transpose4x4(uint32_t (&w)[4]) {
   w[1] = __byte_perm(x0, y0, 0x7632);
   w[2] = __byte_perm(x1, y1, 0x5410);
   w[3] = __byte_perm(x1, y1, 0x7632);
-#endif
 }
 
 // 16 bytes from global to shared memory, asynchronously (L2 only, as the

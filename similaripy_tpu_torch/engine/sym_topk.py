@@ -18,13 +18,18 @@ sw = gt * tc item rows, starting at tile a0, meets inner tile t:
 ``(sw, u_pad)`` or ``(gt, u_pad, tc)``, returns ``rvals, ridx (k_pad_r,
 sw)`` and ``cvals, cidx (k_pad_c, tc)``; ``pvec_ext`` holds [10] col_base,
 [11] row_base, [12] t, [13] a0. On CUDA tensors it launches the kernels of
-``csrc/sym_topk.cu`` (the product with the fused epilogue: bf16 and the
-split mode by ``wgmma`` on operands that TMA brings, int8 by ``mma.sync``
-on the tensor cores and f32 by SIMT FMA, both fed by a ring of
-``cp.async`` copies; then the row-side and the col-side merge) or raises;
-on CPU tensors it runs ``fused_sym_topk_plain``, the same function in plain
-PyTorch. The kernels take tc a multiple of 128 (the executor's tiles) and
-16-byte aligned operands, and raise on anything else.
+``csrc/sym_topk.cu`` (the product with the fused epilogue: bf16, the split
+mode and int8 by ``wgmma`` on operands that TMA brings, f32 by SIMT FMA fed
+by a ring of ``cp.async`` copies; then the row-side and the col-side merge)
+or raises; on CPU tensors it runs ``fused_sym_topk_plain``, the same
+function in plain PyTorch, in any of these layouts. The kernels take tc a
+multiple of 128 (the executor's tiles) and 16-byte aligned operands, and
+raise on anything else. 8-bit ``wgmma`` reads K-major operands only, so
+the int8 kernel takes the anchors as a contiguous ``(sw, u_pad)`` stack and
+``d`` as the ``(u_pad, tc)`` transposed view, strides ``(1, u_pad)``, of a
+contiguous ``(tc, u_pad)`` tile (``scatter.densify_tiles(...,
+layout="kmajor")`` writes both), u_pad a multiple of 16, and raises on any
+other layout rather than copy an operand.
 
 ``precision='high'`` on f32 data runs the split-bf16x3 mode (``split_f32``,
 pallas_kernels.py:1067-1094): both operands are bf16 [hi; lo] stacks along
@@ -189,8 +194,10 @@ def fused_sym_topk_plain(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth,
 
 def fused_sym_topk(
     a,  # (sw, u_pad) or (gt, u_pad, tc) f32 | bf16 | int8 — the anchors
-    #     (u_pad doubled for the bf16 split stacks)
-    d,  # (u_pad, tc) same dtype — inner tile t
+    #     (u_pad doubled for the bf16 split stacks; int8 on a card:
+    #     a contiguous (sw, u_pad) stack)
+    d,  # (u_pad, tc) same dtype — inner tile t (int8 on a card: the
+    #     transposed view of a contiguous (tc, u_pad) tile)
     x_t,  # (sw,) f32 — X at the anchor's items
     x_c,
     x_d,
@@ -238,6 +245,28 @@ def fused_sym_topk(
                    split=split_f32)
 
 
+def _s8_operands(a, d, tc: int) -> tuple[int, int]:
+    """(sw, u_pad) of the int8 kernel's K-major operands: the anchors a
+    contiguous (sw, u_pad) stack, d the (u_pad, tc) transposed view of a
+    contiguous (tc, u_pad) tile, u_pad a multiple of 16 (the row stride
+    that TMA takes). Raises on any other layout: no operand is copied."""
+    if a.dim() != 2 or not a.is_contiguous():
+        raise ValueError(
+            "int8 anchors go to the kernel K-major, as a contiguous (sw, u_pad) stack; "
+            f"got shape {tuple(a.shape)}, strides {a.stride()}")
+    sw, u_pad = a.shape
+    if tuple(d.shape) != (u_pad, tc) or d.stride() != (1, u_pad):
+        raise ValueError(
+            f"the int8 tile goes to the kernel K-major, as the ({u_pad}, {tc}) view with "
+            f"strides (1, {u_pad}) of a contiguous ({tc}, {u_pad}) tile; got shape "
+            f"{tuple(d.shape)}, strides {d.stride()}")
+    if sw % tc:
+        raise ValueError(f"sw={sw} anchor rows do not split into tc={tc} tiles")
+    if u_pad % 16:
+        raise ValueError(f"u_pad={u_pad} is not a multiple of 16 (the int8 kernel's row stride)")
+    return sw, u_pad
+
+
 def _launch(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
             pvec_ext, *, flags, k, tc, int8_mode, x2, y2, split):
     global kernel_launches, asym_launches
@@ -249,26 +278,31 @@ def _launch(a, d, x_t, x_c, x_d, y_t, y_c, y_d, crv, cri, rkth, ccv, cci,
     if split and dtype != torch.bfloat16:
         raise ValueError(f"the split mode takes bf16 stacks, not {dtype}")
     mode = SPLIT_MODES["both"] if split else _MODES[dtype]
-    if a.dim() == 2:
-        # a row panel: the kernel reads the executor's tile layout, so the
-        # panel is copied into it (the executor always passes tiles)
-        sw, u_pad = a.shape
-        if sw % tc:
-            raise ValueError(f"sw={sw} anchor rows do not split into tc={tc} tiles")
-        a = a.view(sw // tc, tc, u_pad).transpose(1, 2).contiguous()
-    gt, a_k, tc_a = a.shape
-    if tc_a != tc:
-        raise ValueError(f"anchor tiles are {tc_a} wide, tc={tc}")
-    u_pad = a_k // 2 if split else a_k  # the kernel's K: one half's depth
     if tc % KERNEL_TILE:
         raise ValueError(f"tc={tc} is not a multiple of the kernel's {KERNEL_TILE}-wide blocks")
-    sw = gt * tc
+    if dtype == torch.int8:
+        sw, u_pad = _s8_operands(a, d, tc)
+        _check("a", a, (sw, u_pad), dtype, dev)
+        _check("d.T", d.T, (tc, u_pad), dtype, dev)
+    else:
+        if a.dim() == 2:
+            # a row panel: the kernel reads the executor's tile layout, so the
+            # panel is copied into it (the executor always passes tiles)
+            sw, u_pad = a.shape
+            if sw % tc:
+                raise ValueError(f"sw={sw} anchor rows do not split into tc={tc} tiles")
+            a = a.view(sw // tc, tc, u_pad).transpose(1, 2).contiguous()
+        gt, a_k, tc_a = a.shape
+        if tc_a != tc:
+            raise ValueError(f"anchor tiles are {tc_a} wide, tc={tc}")
+        u_pad = a_k // 2 if split else a_k  # the kernel's K: one half's depth
+        sw = gt * tc
+        _check("a", a, a.shape, dtype, dev)
+        _check("d", d, (a_k, tc), dtype, dev)
     k_pad_r, k_pad_c = sym_k_pads(k, tc, sw)
     if not 0 < k_pad_r <= MAX_KERNEL_K_PAD:
         raise ValueError(f"k_pad={k_pad_r} is outside the kernel's 1..{MAX_KERNEL_K_PAD}")
     f32, i32 = torch.float32, torch.int32
-    _check("a", a, a.shape, dtype, dev)
-    _check("d", d, (a_k, tc), dtype, dev)
     for name, v in (("x_t", x_t), ("x_c", x_c), ("x_d", x_d)):
         _check(name, v, (sw,), f32, dev)
     for name, v in (("y_t", y_t), ("y_c", y_c), ("y_d", y_d)):

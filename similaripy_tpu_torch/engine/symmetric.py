@@ -9,7 +9,9 @@ upper block triangle once:
     a seeded shuffle inside each tile) serves rows and columns, so every
     tile's COO densifies (K5, ``scatter.densify_tiles``) into the same
     (users x slots) dense tile, whether it is an inner tile or part of an
-    anchor group;
+    anchor group; int8 (and int4) tiles are densified K-major (slots x
+    users), the layout that K2's 8-bit ``wgmma`` reads: K2 takes the
+    anchors as the (sw, u_pad) stack and a tile as its transposed view;
   - anchor groups of ``gt`` tiles are densified once and stay resident
     while the inner tiles t >= the anchor's first tile sweep past them;
     inner tiles that belong to a resident anchor are sliced from it
@@ -123,16 +125,22 @@ def epilogue_is_symmetric(pre: Preprocessed, params: SPlusParams) -> bool:
 # ---------------------------------------------------------------------------
 
 # The planner's cost model; only the ratio of the two rates matters. A
-# block runs at K2's rates, product and both merges, measured by
-# chip_smoke.py (phase times, live blocks at u_pad 200,960) on an NVIDIA
-# H100 80GB HBM3 at 700.00 W (PERF.md): f32 (tc 2,048) 47.2 TFLOP/s, bf16
-# (tc 2,048) 238, the split-bf16x3 mode ("split", tc 2,048) 121 in f32
-# operations (364 in bf16 ones, three phases), int8 (tc 4,096) 404 TOP/s;
-# int4 runs as int8. K5 densified an f32 inner tile of 0.69 M entries, its
-# zero fill included, in 0.65 ms there: about 1e9 entries/s.
-_PRODUCT_RATE = {"int8": 404e12, "int4": 404e12, "bfloat16": 238e12, "float32": 47.2e12,
+# block runs at K2's rates, product and both merges, measured on an NVIDIA
+# H100 80GB HBM3 at 700.00 W (PERF.md) by chip_smoke.py (phase times, live
+# blocks at u_pad 200,960): f32 (tc 2,048) 47.2 TFLOP/s, bf16 (tc 2,048)
+# 238, the split-bf16x3 mode ("split", tc 2,048) 121 in f32 operations (364
+# in bf16 ones, three phases); and int8 (tc 4,096, wgmma s8) 1,440 TOP/s,
+# its 231 live blocks a call in a traced run of the benchmark's cell
+# ml32m-raw-int8.full-build (k2_roofline.build 72.74% of 1,979), where the
+# carries are warm: the smoke's block, whose cold carries make its two
+# merges 2.4 ms, reads 974. int4 runs as int8. K5 densified an f32 inner
+# tile of 0.69 M entries, its zero fill included, in 0.65 ms there: about
+# 1e9 entries/s; an int8 tile, a quarter of the bytes, 1.50 M entries in
+# 0.30-0.34 ms in traced runs of that cell: 4.4e9-4.9e9.
+_PRODUCT_RATE = {"int8": 1440e12, "int4": 1440e12, "bfloat16": 238e12, "float32": 47.2e12,
                  "split": 121e12}
-_DENSIFY_NNZ_RATE = 1e9
+_DENSIFY_NNZ_RATE = {"int8": 4.5e9, "int4": 4.5e9, "bfloat16": 1e9, "float32": 1e9,
+                     "split": 1e9}
 
 
 def _triangle_counts(n_tiles_dev: int, gt: int) -> tuple[int, int]:
@@ -184,12 +192,13 @@ def _plan(C: int, U: int, nnz: int, compute_dtype: str, budget: int,
     gt_max = max(1, min((int(budget * 0.85) - reserve) // per_anchor_tile, n_tiles))
 
     rate = _PRODUCT_RATE.get(compute_dtype, _PRODUCT_RATE["float32"])
+    densify_rate = _DENSIFY_NNZ_RATE.get(compute_dtype, _DENSIFY_NNZ_RATE["float32"])
     nnz_tile = nnz / max(n_tiles, 1)
     best_gt, best_t = 1, float("inf")
     for gt in range(1, gt_max + 1):
         products, densifies = _triangle_counts(math.ceil(n_tiles / gt) * gt, gt)
         t = (products * (gt * tc) * tc * u_pad * 2 / rate
-             + densifies * nnz_tile / _DENSIFY_NNZ_RATE)
+             + densifies * nnz_tile / densify_rate)
         if t < best_t - 1e-9:
             best_gt, best_t = gt, t
     return tc, best_gt, u_pad
@@ -407,8 +416,10 @@ def execute_symmetric(
     dev_coo, vecs, item_map = cached_prep_symmetric(
         pre, compute_dtype, tc, n_tiles_dev, u_pad, device, split
     )
-    # what K5 densifies: the [hi; lo] bf16 stacks of a split call
+    # what K5 densifies: the [hi; lo] bf16 stacks of a split call; int8
+    # tiles K-major, (tc, u_pad), since 8-bit wgmma reads no other layout
     tile_k, tile_cdt = (2 * u_pad, torch.bfloat16) if split else (u_pad, cdt)
+    layout = "kmajor" if int8_mode else "mn"
     pvec_host = build_pvec(params, inv_scale)
     flags = params.static_flags()
     asym = not epilogue_is_symmetric(pre, params)
@@ -443,11 +454,22 @@ def execute_symmetric(
     def vec3(prefix, t0, t1):
         return tuple(vecs[f"{prefix}_{n}"][t0:t1].reshape(-1) for n in "tcd")
 
+    def densify_range(t0, t1):
+        return densify(*coo(t0, t1), u_pad=tile_k, tc=tc, cdt=tile_cdt, layout=layout)
+
+    def k2_tile(tile):
+        """One densified tile as K2 takes it, (tile_k, tc): int8 the
+        transposed view of its K-major (tc, u_pad) tile (no copy)."""
+        return tile.T if int8_mode else tile
+
     def make_anchor(a: int) -> dict:
         t0, t1 = a * gt, (a + 1) * gt
+        tiles = densify_range(t0, t1)  # (gt, tile_k, tc); int8 (gt, tc, u_pad)
         return {
             "a": a,
-            "lhs": densify(*coo(t0, t1), u_pad=tile_k, tc=tc, cdt=tile_cdt),  # (gt, tile_k, tc)
+            "tiles": tiles,
+            # what K2 takes: int8 the (sw, u_pad) stack, a view of the tiles
+            "lhs": tiles.view(sw, tile_k) if int8_mode else tiles,
             "x": vec3("x", t0, t1),  # X at the anchor's items
             "y2": vec3("y", t0, t1) if asym else None,  # Y at the anchor's items
         }
@@ -456,9 +478,9 @@ def execute_symmetric(
         """Tile t against the anchors `sweepers` (K2 once for each)."""
         own = anchors.get(t // gt)
         if own is not None:  # the tile is resident in an anchor: slice, no densify
-            d = own["lhs"][t - own["a"] * gt]
+            d = k2_tile(own["tiles"][t - own["a"] * gt])
         else:
-            d = densify(*coo(t, t + 1), u_pad=tile_k, tc=tc, cdt=tile_cdt)[0]
+            d = k2_tile(densify_range(t, t + 1)[0])
         y = vec3("y", t, t + 1)
         x2 = vec3("x", t, t + 1) if asym else None
         for a in sweepers:

@@ -54,7 +54,7 @@ kernel_launches = 0
 plain_calls = 0
 # the product kernels a launch may take, in the order of ProductKernel
 # (csrc/splus_epilogue.cuh)
-PRODUCT_KERNELS = ("simt", "mma.sync s8", "mma.sync bf16", "wgmma bf16")
+PRODUCT_KERNELS = ("simt", "mma.sync s8", "mma.sync bf16", "wgmma bf16", "wgmma s8")
 product_launches = dict.fromkeys(PRODUCT_KERNELS, 0)
 
 _MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}

@@ -121,7 +121,7 @@ def test_sym_kernel_matches_plain(case):
     got = torch_fn(sym_topk.fused_sym_topk, case["mode"], device="cuda")(*args, **kw)
     torch.cuda.synchronize()
     assert sym_topk.kernel_launches == 1 and sym_topk.plain_calls == 0
-    kernel = {"f32": "simt", "int8": "mma.sync s8"}.get(case["mode"], "wgmma bf16")
+    kernel = {"f32": "simt", "int8": "wgmma s8"}.get(case["mode"], "wgmma bf16")
     assert sym_topk.product_launches[kernel] == 1
     assert_same_k2(case["mode"], got, plain(*args, **kw), EPILOGUES[case["epi"]][0])
 
@@ -155,6 +155,37 @@ def test_scatter_kernel_matches_plain(mode, dup):
     ref = scatter.densify_tiles_plain(*args, u_pad=u_pad, tc=tc, cdt=dt)
     assert got.dtype == dt and got.shape == (g, u_pad, tc)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dup", [False, True])
+def test_scatter_kernel_kmajor_matches_plain(dup):
+    """The K-major int8 tiles that K2 takes, (G, tc, u_pad): the kernel with
+    the roles of user and slot swapped equals the plain version and the
+    transpose of the (G, u_pad, tc) tiles; sentinels land nowhere."""
+    _need_card()
+    rng = np.random.default_rng(11 + dup)
+    g, u_pad, tc, p2 = 3, 2000, 1024, 40_000
+    ru = np.full((g, p2), u_pad, np.int32)
+    sl = np.zeros((g, p2), np.int32)
+    vv = np.zeros((g, p2), np.float32)
+    for t in range(g):
+        n = p2 - 1000 * (t + 1)
+        cells = rng.choice(u_pad * tc, n, replace=False)
+        if dup:
+            cells[n // 2:] = cells[: n - n // 2]
+        ru[t, :n], sl[t, :n] = cells // tc, cells % tc
+        vv[t, :n] = rng.integers(-6, 7, n)
+    args = [torch.from_numpy(a).cuda() for a in (ru, sl, vv)]
+    scatter.reset_counts()
+    got = scatter.densify_tiles(*args, u_pad=u_pad, tc=tc, cdt=torch.int8, layout="kmajor")
+    torch.cuda.synchronize()
+    assert scatter.kernel_launches == 1 and scatter.plain_calls == 0
+    assert got.dtype == torch.int8 and got.shape == (g, tc, u_pad)
+    assert torch.equal(got, scatter.densify_tiles_plain(*args, u_pad=u_pad, tc=tc,
+                                                        cdt=torch.int8, layout="kmajor"))
+    mn = scatter.densify_tiles(*args, u_pad=u_pad, tc=tc, cdt=torch.int8)
+    assert torch.equal(got, mn.transpose(1, 2))
 
 
 K3_ALL = [c + (None,) for c in K3_CASES] + K3_CARD_CASES

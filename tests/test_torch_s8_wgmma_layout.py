@@ -1,8 +1,8 @@
-"""A NumPy model of the probes' int8 products on wgmma s8, which no CPU can
-run: the K-major pass (similaripy_tpu_torch/csrc/kmajor.cuh), the 8-bit TMA
+"""A NumPy model of the int8 products on wgmma s8, which no CPU can run:
+the K-major pass (similaripy_tpu_torch/csrc/kmajor.cuh), the 8-bit TMA
 boxes and descriptors of hopper.cuh's wgmma_block_s8, P1's product
-(tlhs_wgmma_s8_kernel in csrc/probe_tlhs.cu) and P2's (int_wgmma_kernel in
-csrc/probe_int_mma.cu).
+(tlhs_wgmma_s8_kernel in csrc/probe_tlhs.cu), P2's (int_wgmma_kernel in
+csrc/probe_int_mma.cu) and K2's (sym_s8_kernel in csrc/sym_topk.cu).
 
 The model runs the pass thread by thread (16-byte loads, the PRMT 4 x 4
 byte transpose as its byte permutes, the XOR-swizzled shared tile, the
@@ -13,7 +13,12 @@ swizzle) by viewing each pair of bytes as one 16-bit element of
 test_torch_wgmma_layout.py's model, reads each k32 step through the
 descriptors the kernels build, multiplies into int32 totals, writes through
 the s32 accumulator fragments, and checks P1's grid of cluster pairs and
-P2's grid with its split of K.
+P2's grid with its split of K. For K2 it loads the K-major anchors (sw,
+u_pad) and tile (tc, u_pad) that K5 writes, u_pad a multiple of 16 but not
+of 128 (the last slab's boxes zero-filled past it), runs the grid with its
+band skip, and writes through the epilogue's register-to-(row, column) maps
+of the row side and of the transposed col side, checking that every live
+cell of both planes is written once with the scaled product.
 """
 
 import numpy as np
@@ -399,3 +404,218 @@ def test_p2_probe_shape_fills_the_card():
     gx, gy, gz, per, n_slabs, smem = p2_grid(512, 2048, 512)
     assert (gx, gy, gz, per, n_slabs) == (2, 4, 16, 1, 16)
     assert smem <= SMEM_PER_SM and gx * gy * gz <= H100_SMS
+
+
+# ---------------------------------------------------------------------------
+# K2: sym_s8_kernel on the K-major anchors (sw, u_pad) and tile (tc, u_pad)
+# ---------------------------------------------------------------------------
+
+BM = 128
+
+
+def k2_live_rows(t, a0, sw, tc):
+    """live_rows and col_rows of sym_topk.cu: anchor rows of tile <= t, < t."""
+    return (int(np.clip((t - a0 + 1) * tc, 0, sw)), int(np.clip((t - a0) * tc, 0, sw)))
+
+
+def k2_s8_grid(sw, tc):
+    """launch_s8's grid: (column blocks, padded to an even count for the
+    cluster pairs; row blocks)."""
+    gx = -(-tc // WG_S8_BN)
+    return (gx + 1) // 2 * 2, sw // BM
+
+
+def k2_s8_stage(anchors, tile, m0, n0, s):
+    """Slab s of sym_s8_kernel in one block of a pair: the anchors' box
+    `rank` of the 2D map (u_pad, sw) at (k0, m0 + 64 rank) from each block
+    of the pair (multicast), the tile's four boxes of the map (u_pad, tc)
+    at (k0, n0 + 64 j)."""
+    smem = np.full(WG_S8_SLAB // 2, np.nan)
+    k0 = s * WG_S8_BK
+    written = [s8_box(smem, rank * BOX_BYTES, anchors, k0, m0 + 64 * rank) for rank in range(2)]
+    written += [s8_box(smem, (2 + j) * BOX_BYTES, tile, k0, n0 + 64 * j)
+                for j in range(WG_S8_BN // 64)]
+    written = np.concatenate(written)
+    assert len(np.unique(written)) == written.size == WG_S8_SLAB // 2
+    return smem
+
+
+def k2_s8_totals(anchors, tile, m0, n0):
+    """Each consumer thread's 128 s32 totals, by (wg, warp, lane, register),
+    as wgmma_block_s8 accumulates them over the slabs and the m64n256k32
+    fragment lays them out (s32_fragment_cells)."""
+    n_slabs = -(-anchors.shape[1] // WG_S8_BK)
+    acc = np.zeros((2, 4, 32, 128), np.int64)
+    for wg in range(2):
+        total = np.zeros((64, WG_S8_BN), np.int64)
+        for s in range(n_slabs):
+            smem = k2_s8_stage(anchors, tile, m0, n0, s)
+            for t in range(WG_S8_BK // 32):
+                kb = np.arange(32)[None, :]
+                fa = s8_desc_read(smem, wg * BOX_BYTES + 32 * t, np.arange(64)[:, None], kb)
+                fb = s8_desc_read(smem, 2 * BOX_BYTES + 32 * t, np.arange(WG_S8_BN)[:, None], kb)
+                total += fa.astype(np.int64) @ fb.astype(np.int64).T
+        rows, cols = s32_fragment_cells(wg, WG_S8_BN)
+        acc[wg] = total[rows - 64 * wg, cols]
+    return acc
+
+
+def k2_s8_epilogue(acc, m0, n0, sw, tc, n_live, n_col, inv_scale, scores_r, scores_c, writes):
+    """The kernel's epilogue lambda: thread (wg, warp, lane) names rows[i] =
+    m0 + 64 wg + 16 warp + 8 i + g and cols[j] = n0 + 8 (j >> 1) + 2 tig +
+    (j & 1), reads acc[4 (j >> 1) + 2 i + (j & 1)], and (epilogue() of
+    sym_topk.cu) skips rows past n_live and columns past tc, writes the row
+    side at (row, col) and, for rows below n_col, the col side at (col,
+    row). writes[0] and writes[1] count the stores of each plane."""
+    lane = np.arange(32)
+    g, tig = lane >> 2, lane & 3
+    for wg in range(2):
+        for warp in range(4):
+            for i in range(2):
+                r = m0 + 64 * wg + 16 * warp + 8 * i + g
+                for j in range(64):
+                    c = n0 + 8 * (j >> 1) + 2 * tig + (j & 1)
+                    v = acc[wg, warp, :, 4 * (j >> 1) + 2 * i + (j & 1)] * inv_scale
+                    ok = (r < n_live) & (c < tc)
+                    scores_r[r[ok], c[ok]] = v[ok]
+                    np.add.at(writes[0], (r[ok], c[ok]), 1)
+                    ok &= r < n_col
+                    scores_c[c[ok], r[ok]] = v[ok]
+                    np.add.at(writes[1], (c[ok], r[ok]), 1)
+
+
+def k2_s8_call(anchors, tile, gt, tc, a0, t, inv_scale=0.25):
+    """Every block of the launch over the K-major operands: the two score
+    planes (row side sw x tc, col side tc x sw; NaN where nothing was
+    written), the writes of each cell, and the row blocks that ran."""
+    sw = gt * tc
+    n_live, n_col = k2_live_rows(t, a0, sw, tc)
+    scores_r, scores_c = np.full((sw, tc), np.nan), np.full((tc, sw), np.nan)
+    writes = (np.zeros((sw, tc), int), np.zeros((tc, sw), int))
+    gx, gy = k2_s8_grid(sw, tc)
+    ran = set()
+    for by in range(gy):
+        for bx in range(gx):
+            m0, n0 = by * BM, bx * WG_S8_BN
+            if m0 >= n_live:  # below the band: returns before any load
+                continue
+            ran.add(by)
+            acc = k2_s8_totals(anchors, tile, m0, n0)
+            k2_s8_epilogue(acc, m0, n0, sw, tc, n_live, n_col, inv_scale, scores_r, scores_c,
+                           writes)
+    return scores_r, scores_c, writes, ran
+
+
+def kmajor_tiles(items, tc):
+    """The (u, n) item columns as K5's K-major tiles: (n, u_pad) rows, the
+    user axis padded with zeros to a multiple of 16."""
+    u = items.shape[0]
+    out = np.zeros((items.shape[1], -(-u // 16) * 16), np.int8)
+    out[:, :u] = items.T
+    return out
+
+
+# (gt, tc, u, a0, t): every row of a live block; a band whose first anchor
+# tile is diagonal and second dead; a band that cuts a three-tile group; an
+# odd count of 256-wide column blocks with a half-empty last one; u_pad
+# shorter than one slab, and ending mid-slab
+K2_S8_CASES = [(2, 128, 48, 2, 4), (2, 256, 144, 2, 2), (3, 128, 272, 2, 3),
+               (2, 384, 112, 1, 2), (1, 640, 16, 0, 1), (2, 128, 1008, 3, 4)]
+
+
+@pytest.mark.parametrize("gt,tc,u,a0,t", K2_S8_CASES)
+def test_k2_s8_blocks_write_each_live_cell_once_with_the_product(gt, tc, u, a0, t):
+    """Full-range int8 over u users: the row side holds anchors . tile x
+    inv_scale on rows of tile <= t and nothing below the band, the col side
+    its transpose on rows of tile < t; each of those cells is written once,
+    no other cell at all, and a row block past the band never runs."""
+    rng = np.random.default_rng(gt * 1000 + tc + u)
+    sw = gt * tc
+    items = rng.integers(-128, 128, (u, sw + tc)).astype(np.int8)
+    anchors = kmajor_tiles(items[:, :sw], tc)
+    tile = kmajor_tiles(items[:, sw:], tc)
+    assert anchors.shape == (sw, -(-u // 16) * 16) and tile.shape == (tc, anchors.shape[1])
+    scores_r, scores_c, writes, ran = k2_s8_call(anchors, tile, gt, tc, a0, t)
+    n_live, n_col = k2_live_rows(t, a0, sw, tc)
+    ref = items[:, :sw].astype(np.int64).T @ items[:, sw:].astype(np.int64) * 0.25
+    assert (writes[0][:n_live] == 1).all() and (writes[0][n_live:] == 0).all()
+    assert (writes[1][:, :n_col] == 1).all() and (writes[1][:, n_col:] == 0).all()
+    np.testing.assert_array_equal(scores_r[:n_live], ref[:n_live])
+    np.testing.assert_array_equal(scores_c[:, :n_col], ref[:n_col].T)
+    assert ran == set(range(-(-n_live // BM)))
+
+
+@pytest.mark.parametrize("u", [16, 48, 112, 128, 144, 1008])
+@pytest.mark.parametrize("operand", ["anchors", "tile"])
+def test_k2_s8_kmajor_boxes_zero_fill_past_u_pad_and_past_the_rows(operand, u):
+    """Each box of the 2D map (u_pad, rows) holds 128 K bytes of 64 K-major
+    rows: the operand's bytes at k < u_pad and rows inside, zeros past
+    u_pad in the last slab and past the last row (a tile's column block
+    past tc), every byte of the box written once."""
+    rows = 384 if operand == "anchors" else 128
+    rng = np.random.default_rng(u + rows)
+    xt = rng.integers(1, 128, (rows, u)).astype(np.int8)
+    for s in range(-(-u // WG_S8_BK)):
+        k0 = s * WG_S8_BK
+        for row0 in range(0, rows + 128, 64):
+            smem = np.full(BOX_BYTES // 2, np.nan)
+            written = s8_box(smem, 0, xt, k0, row0)
+            assert len(np.unique(written)) == written.size == BOX_BYTES // 2
+            r, kb = np.divmod(np.arange(BOX_BYTES), 128)
+            got = smem_byte(smem, swizzle(r * 128 + kb)).reshape(64, 128)
+            want = np.zeros((64, 128), np.int8)
+            inside = xt[row0:row0 + 64, k0:k0 + 128]
+            want[:inside.shape[0], :inside.shape[1]] = inside
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("gt,tc,a0,t", [(1, 4096, 0, 0), (1, 4096, 3, 7), (2, 128, 4, 2),
+                                        (3, 256, 2, 3), (2, 384, 2, 2), (9, 2048, 0, 5)])
+def test_k2_s8_grid_covers_live_blocks_once_and_skips_below_the_band(gt, tc, a0, t):
+    """launch_s8's grid: ceil(tc / 256) column blocks padded to an even
+    count for the cluster pairs (2i, 2i + 1) of one row block, by sw / 128
+    row blocks. Each live (row, column) is covered once; the two blocks of
+    a pair share m0, so they return or run as one (the multicast needs
+    both); a padding block's columns lie past tc."""
+    sw = gt * tc
+    n_live, _ = k2_live_rows(t, a0, sw, tc)
+    gx, gy = k2_s8_grid(sw, tc)
+    cover = np.zeros((sw, gx * WG_S8_BN), int)
+    for by in range(gy):
+        for pair in range(gx // 2):
+            runs = {by * BM < n_live for _ in (2 * pair, 2 * pair + 1)}
+            assert len(runs) == 1
+            for bx in (2 * pair, 2 * pair + 1):
+                if by * BM < n_live:
+                    cover[by * BM:(by + 1) * BM, bx * WG_S8_BN:(bx + 1) * WG_S8_BN] += 1
+    assert (cover[:n_live, :tc] == 1).all() and (cover[n_live:] == 0).all()
+    assert gx * WG_S8_BN - tc < 2 * WG_S8_BN
+    if (gt, tc) == (1, 4096):  # the main path's int8 block: 16 x 32 blocks of 128 x 256
+        assert (gx, gy) == (16, 32)
+
+
+@pytest.mark.parametrize("side", ["row", "col"])
+def test_k2_s8_epilogue_maps_name_the_fragment_cells(side):
+    """The epilogue's (rows[i], cols[j]) of register 4 (j >> 1) + 2 i + (j &
+    1) is the m64n256k32 fragment's cell of that register, for every thread
+    of both warpgroups: on the row side at (row, col), on the col side at
+    (col, row); together the 128 threads of a warpgroup name each cell of
+    its 64 x 256 strip once."""
+    lane = np.arange(32)
+    g, tig = lane >> 2, lane & 3
+    for wg in range(2):
+        f_rows, f_cols = s32_fragment_cells(wg, WG_S8_BN)
+        cells = np.zeros((BM, WG_S8_BN), int)
+        for warp in range(4):
+            for i in range(2):
+                for j in range(64):
+                    reg = 4 * (j >> 1) + 2 * i + (j & 1)
+                    r = 64 * wg + 16 * warp + 8 * i + g
+                    c = 8 * (j >> 1) + 2 * tig + (j & 1)
+                    np.testing.assert_array_equal(r, f_rows[warp, :, reg])
+                    np.testing.assert_array_equal(c, f_cols[warp, :, reg])
+                    if side == "row":
+                        np.add.at(cells, (r, c), 1)
+                    else:
+                        np.add.at(cells.T, (c, r), 1)
+        assert (cells[64 * wg:64 * wg + 64] == 1).all() and cells.sum() == 64 * WG_S8_BN

@@ -4,7 +4,8 @@ JAX package's own binning of the same COO) and its executor.densify.
 
 On CPU tensors densify_tiles runs its plain PyTorch version. Per-tile COO
 with sentinel padding (user == u_pad) goes in; dense (G, u_pad, tc) tiles
-come out, exactly equal. The CUDA kernel is held against the plain version
+come out, exactly equal, or in the K-major layout (G, tc, u_pad) that K2's
+int8 product takes, their transpose. The CUDA kernel is held against the plain version
 on the card (test_torch_kernel_cuda.py, chip_smoke.py).
 """
 
@@ -106,3 +107,40 @@ def test_cuda_tensor_never_falls_back(monkeypatch):
     with pytest.raises(ValueError, match="cuda or cpu"):
         scatter.densify_tiles(*meta, u_pad=U_PAD, tc=TC, cdt=torch.float32)
     assert scatter.plain_calls == 0
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("dup", [False, True])
+def test_kmajor_layout_is_the_transposed_tile(mode, dup):
+    """layout="kmajor" writes (G, tc, u_pad): each slot's users contiguous,
+    the transpose of the (G, u_pad, tc) tiles, sentinels and repeated
+    entries included."""
+    ru, sl, vv = (torch.from_numpy(a) for a in _coo(mode, seed=5 + dup, dup=dup))
+    kw = dict(u_pad=U_PAD, tc=TC, cdt=TORCH[mode])
+    mn = scatter.densify_tiles(ru, sl, vv, **kw)
+    km = scatter.densify_tiles(ru, sl, vv, layout="kmajor", **kw)
+    assert km.shape == (G, TC, U_PAD) and km.dtype == TORCH[mode] and km.is_contiguous()
+    assert torch.equal(km, mn.transpose(1, 2))
+
+
+def test_kmajor_sentinels_land_nowhere_and_int8_wraps():
+    """A sentinel (user u_pad) with a nonzero slot would land in the next
+    slot's row if user and slot simply swapped places, since densify drops
+    entries by row only; here it lands nowhere. Repeats wrap in int8 as
+    PyTorch's int8 addition does (100 + 100 = -56), in both layouts."""
+    ru = torch.tensor([[U_PAD, U_PAD, 7, 7, 3]], dtype=torch.int32)
+    sl = torch.tensor([[5, TC - 1, 2, 2, 0]], dtype=torch.int32)
+    vv = torch.tensor([[9.0, 9.0, 100.0, 100.0, -4.0]])
+    kw = dict(u_pad=U_PAD, tc=TC, cdt=torch.int8)
+    km = scatter.densify_tiles_plain(ru[:, :2], sl[:, :2], vv[:, :2], layout="kmajor", **kw)
+    assert km.shape == (1, TC, U_PAD) and not km.any()
+    km = scatter.densify_tiles_plain(ru, sl, vv, layout="kmajor", **kw)
+    mn = scatter.densify_tiles_plain(ru, sl, vv, **kw)
+    assert torch.equal(km, mn.transpose(1, 2))
+    assert km[0, 2, 7] == -56 and km[0, 0, 3] == -4 and int(km.count_nonzero()) == 2
+
+
+def test_unknown_layout_raises():
+    ru, sl, vv = (torch.from_numpy(a) for a in _coo("f32", seed=6))
+    with pytest.raises(ValueError, match="layout"):
+        scatter.densify_tiles(ru, sl, vv, u_pad=U_PAD, tc=TC, cdt=torch.float32, layout="km")

@@ -125,3 +125,32 @@ def test_cuda_tensor_never_falls_back():
     with pytest.raises(ValueError, match="cuda or cpu"):
         sym_topk.fused_sym_topk(*meta, **kw)
     assert sym_topk.plain_calls == 0
+
+
+@pytest.mark.parametrize("layout", ["mn-3d", "anchors-strided", "tile-contiguous",
+                                    "tile-not-viewed", "u-not-16"])
+def test_int8_kernel_route_takes_kmajor_operands_only(layout):
+    """The int8 kernel reads K-major operands only: a contiguous (sw,
+    u_pad) anchor stack and the (u_pad, tc) view, strides (1, u_pad), of a
+    contiguous (tc, u_pad) tile, u_pad a multiple of 16. The kernel route
+    raises on any other layout before it launches or copies anything."""
+    tc, gt, u = 128, 2, 64
+    sw = gt * tc
+    a_k = torch.zeros((sw, u), dtype=torch.int8)
+    d_k = torch.zeros((tc, u), dtype=torch.int8).T
+    a, d = {
+        "mn-3d": (a_k.view(gt, tc, u).transpose(1, 2).contiguous(), d_k.contiguous()),
+        "anchors-strided": (torch.zeros((sw, 2 * u), dtype=torch.int8)[:, :u], d_k),
+        "tile-contiguous": (a_k, d_k.contiguous()),
+        "tile-not-viewed": (a_k, d_k.T),
+        "u-not-16": (torch.zeros((sw, 40), dtype=torch.int8),
+                     torch.zeros((tc, 40), dtype=torch.int8).T),
+    }[layout]
+    vecs = [torch.ones(sw)] * 3 + [torch.ones(tc)] * 3
+    k_pad = 16
+    carries = [torch.full((k_pad, sw), -np.inf), torch.zeros((k_pad, sw), dtype=torch.int32),
+               torch.full((sw, 1), -np.inf), torch.full((k_pad, tc), -np.inf),
+               torch.zeros((k_pad, tc), dtype=torch.int32)]
+    with pytest.raises(ValueError, match="K-major|multiple of 16"):
+        sym_topk._launch(a, d, *vecs, *carries, torch.zeros(16), flags=EPILOGUES["sym"][0],
+                         k=k_pad, tc=tc, int8_mode=True, x2=None, y2=None, split=False)

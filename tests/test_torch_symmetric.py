@@ -203,6 +203,44 @@ def test_int8_path_is_identical(monkeypatch):
     np.testing.assert_array_equal(np.sort(got.tocsr().data), np.sort(ref.tocsr().data))
 
 
+@pytest.mark.parametrize("compute_dtype,name,kw", [
+    ("int8", "cosine", {}),
+    ("int4", "cosine", {}),
+    ("int8", "tversky", dict(alpha=0.2, beta=0.9)),
+    ("int4", "asymmetric_cosine", dict(alpha=0.2)),
+])
+def test_int_routes_hand_k2_kmajor_operands(monkeypatch, compute_dtype, name, kw):
+    """int8 and int4 densify their tiles K-major (K5's layout "kmajor") and
+    hand K2 the anchors as a contiguous (sw, u_pad) stack and each inner
+    tile as the (u_pad, tc) view, strides (1, u_pad), of a contiguous (tc,
+    u_pad) tile, resident or densified; symmetric and asymmetric epilogues
+    alike, and the results stay the JAX package's: values identical where
+    the epilogue rounds as the JAX package's does (tversky's division
+    differs from it by an ulp on either route, so it is held to rtol
+    1e-4)."""
+    _force(monkeypatch, 128, 2)
+    m = _rand(40, 500, seed=5).T.tocsr()
+    seen = []
+    orig = sym_topk.fused_sym_topk
+
+    def spy(a, d, *args, **kwargs):
+        seen.append((tuple(a.shape), a.is_contiguous(), tuple(d.shape), d.stride(),
+                     d.T.is_contiguous(), a.dtype, d.dtype))
+        return orig(a, d, *args, **kwargs)
+
+    monkeypatch.setattr(sym_topk, "fused_sym_topk", spy)
+    got, ref = _both(name, m, k=12, compute_dtype=compute_dtype, **kw)
+    plan = executor.last_plan
+    assert plan["compute_dtype"] == "int8" and plan["asym"] == (name != "cosine")
+    sw, u_pad, tc = plan["sw"], plan["u_pad"], plan["tc"]
+    assert len(seen) == plan["blocks"] > 0
+    assert set(seen) == {((sw, u_pad), True, (u_pad, tc), (1, u_pad), True, torch.int8,
+                          torch.int8)}
+    _assert_match(got, ref)
+    if name != "tversky":
+        np.testing.assert_array_equal(np.sort(got.tocsr().data), np.sort(ref.tocsr().data))
+
+
 def test_bfloat16_compute(monkeypatch):
     _force(monkeypatch, 128, 2)
     m = _rand(40, 400, seed=6).T.tocsr()

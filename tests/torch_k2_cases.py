@@ -212,10 +212,26 @@ def make_inputs(c, fn):
     return args, kw
 
 
+def kmajor_operands(a, d):
+    """int8 anchors (gt, u, tc) or (sw, u) and tile (u, tc) as K2's kernel
+    takes them, K-major: the anchors a contiguous (sw, u16) stack and the
+    tile the (u16, tc) transposed view of a contiguous (tc, u16) tile, the
+    user axis zero-padded to u16, a multiple of 16 (the kernel's row
+    stride), which changes no product."""
+    rows = a if a.dim() == 2 else a.transpose(1, 2).reshape(-1, a.shape[1])
+    u, tc = d.shape
+    u16 = -(-u // 16) * 16
+    a_k = torch.zeros((rows.shape[0], u16), dtype=a.dtype, device=a.device)
+    d_k = torch.zeros((tc, u16), dtype=d.dtype, device=d.device)
+    a_k[:, :u], d_k[:, :u] = rows, d.T
+    return a_k, d_k.T
+
+
 def torch_fn(fn, mode, device="cpu"):
     """`fn` (fused_sym_topk or its plain version) over numpy arguments on
     `device`, returning numpy; mode "split" hands it the split_bf16x3
-    stacks of f32 anchors and tile."""
+    stacks of f32 anchors and tile, mode "int8" the K-major operands
+    (kmajor_operands)."""
     dt = TORCH_DTYPES.get(mode, torch.float32)
     dev = torch.device(device)
 
@@ -224,6 +240,8 @@ def torch_fn(fn, mode, device="cpu"):
             return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
         ta, td = tt(a).to(dt), tt(d).to(dt)
+        if mode == "int8":
+            ta, td = kmajor_operands(ta, td)
         if mode == "split":
             from similaripy_tpu_torch.engine.tile_topk import split_bf16x3
 
