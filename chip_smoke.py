@@ -1620,13 +1620,12 @@ def _compact_panel(torch, dev, m_items, targets, plan, dtype, params, **prep):
     (compact.stage_panels, compact.stage_tiles, compact.rank_rows) at the
     call's plan: the panel's hot and cold lhs, the dense group table in
     the call's rank order, the gather ids and the vectors."""
-    from similaripy_tpu_torch.engine import compact, scatter
-    from similaripy_tpu_torch.engine import executor as ex
+    from similaripy_tpu_torch.engine import compact, scatter, staging
     from similaripy_tpu_torch.engine.params import build_pvec
     from similaripy_tpu_torch.engine.preprocess import preprocess
 
     pre = preprocess(m_items, m_items.T, k=100, target_rows=targets, self_similar=True, **prep)
-    cd, inv_scale = ex.resolve_compute_dtype(dtype, pre)
+    cd, inv_scale = staging.resolve_compute_dtype(dtype, pre)
     H, tc, u_pad, cg = plan["H"], plan["tc"], plan["u_pad"], plan["cg"]
     buckets, rank_table = compact.stage_panels(pre, cd, u_pad=u_pad, device=dev,
                                                densify=scatter.densify_tiles)
@@ -1635,7 +1634,7 @@ def _compact_panel(torch, dev, m_items, targets, plan, dtype, params, **prep):
                                                        u_pad=u_pad, device=dev)
     G = cg // tc
     d_group = compact._build_d_group(compact.rank_rows(rows[:G], rank_table), cols[:G],
-                                     vals[:G], u_pad=u_pad, tc=tc, cdt=ex.compute_cast(cd),
+                                     vals[:G], u_pad=u_pad, tc=tc, cdt=staging.compute_cast(cd),
                                      densify=scatter.densify_tiles)
     pv = np.zeros(16, np.float32)
     pv[:10] = build_pvec(params, inv_scale)

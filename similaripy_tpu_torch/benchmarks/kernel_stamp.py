@@ -12,10 +12,10 @@ on the card.
 The hash takes the raw bytes of every ``csrc/*.cu``, every ``csrc/*.cuh``
 and ``benchmarks/kernel_check.py`` (a widened sweep must run again), and a
 docstring- and comment-insensitive dump of the code of the geometry
-sources: the executors, which decide the shapes the kernels are asked to
-run (tile widths, carry depths, ...), and the kernels' launch wrappers. A
-comment edit there forces no sweep; any code edit, a tile constant
-included, does. The stamp lives in ``similaripy_tpu_torch/_build/``, as
+sources: the executors and their staging helpers, which decide the shapes
+the kernels are asked to run (tile widths, carry depths, ...), and the
+kernels' launch wrappers. A comment edit there forces no sweep; any code
+edit, a tile constant included, does. The stamp lives in ``similaripy_tpu_torch/_build/``, as
 the built libraries do.
 """
 
@@ -31,7 +31,7 @@ PACKAGE = Path(__file__).resolve().parent.parent
 STAMP_PATH = PACKAGE / "_build" / "kernel_check.stamp"
 
 GEOMETRY_SOURCES = (
-    "engine/executor.py", "engine/symmetric.py", "engine/compact.py", "engine/sharded.py",
+    "engine/executor.py", "engine/symmetric.py", "engine/compact.py", "engine/staging.py",
     "engine/sym_sharded.py",
     "engine/tile_topk.py", "engine/sym_topk.py", "engine/panel_topk.py", "engine/gather.py",
     "engine/scatter.py",

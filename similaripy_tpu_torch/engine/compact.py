@@ -26,7 +26,7 @@ dimension (no gather, no bias). Dense tiles are densified by K5
 scores stay int32 and join the cold int32 accumulator inside K3 before the
 single inverse-scale multiply.
 
-Both sides stay in the device cache (executor.py). The "compact_m1" entry
+Both sides stay in the device cache (cache.py). The "compact_m1" entry
 (the plan's panels and the user ranks as a device table) keys on the
 targets. The "compact_m2" entry (matrix2's balanced per-tile COO with the
 user axis in user order, the column map and the column vectors) keys on
@@ -40,13 +40,15 @@ ran at ~6 GB/s; on a card a row gather is a plain coalesced copy (K4 moves
 read): "on" forces it for every eligible call, "off" never takes it, and
 "auto" takes it on a card (the JAX package's off-TPU rule, whose size
 test always holds once the hot prefix is at least KB high), never on the
-CPU, where the other routes' tests keep their routes. On an H100 the three calls of chip_smoke.py took
-1.16-2.7x less wall time on this route than on the general one (PERF.md). ``HOT`` and ``UC_BUCKETS`` are the JAX package's
-``SIMILARIPY_TPU_HOT`` and ``SIMILARIPY_TPU_UC_BUCKETS``.
+CPU, where the other routes' tests keep their routes. On an H100 the three
+calls of chip_smoke.py took 1.16-2.7x less wall time on this route than on
+the general one (PERF.md). ``HOT`` is the JAX package's
+``SIMILARIPY_TPU_HOT``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, field
 from typing import Optional
@@ -55,19 +57,19 @@ import numpy as np
 import torch
 
 from ..ops.csr import csc_quantized
-from . import gather, panel_topk, scatter, spans
+from . import cache, gather, panel_topk, scatter
 from .params import PVEC_LEN, build_pvec
 from .preprocess import Preprocessed, _fingerprint
-from .tile_topk import full_f32_matmul
-
-NEG_INF = float("-inf")
+from .staging import (
+    balance_columns, column_vectors, compute_cast, last_plan, resolve_compute_dtype, round_up,
+    stack_m2_tiles_balanced, upload,
+)
+from .tile_topk import NEG_INF, full_f32_matmul
 
 # "auto" | "on" | "off" (see the module docstring)
 MODE = "auto"
 # hot-prefix height, at most a quarter of the inner dimension
 HOT = 16384
-# cold-union bucket widths; None = (HOT // 2, 2 * HOT)
-UC_BUCKETS: Optional[tuple] = None
 
 TM = 256  # target rows per panel (pallas_kernels.TM)
 KB = 768  # inner-dimension granule (pallas_kernels.KB)
@@ -76,10 +78,6 @@ DEFAULT_TC = 4096  # column-tile width (pallas_kernels.DEFAULT_TC); f32 halves i
 # int8 hot products on the CPU run as float64 (exact below 2**53), in
 # column chunks so the f64 copy stays small
 _CPU_INT8_COLS = 2048
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
 
 
 # ---------------------------------------------------------------------------
@@ -251,10 +249,9 @@ def _hot_height(u_pad: int) -> int:
 
 
 def cold_buckets(H: int, u_pad: int) -> tuple:
-    """The cold-union bucket widths a call plans with: UC_BUCKETS or
-    (H // 2, 2 * H), rounded up to KB, each leaving K = H + B below u_pad."""
-    widths = UC_BUCKETS if UC_BUCKETS is not None else (H // 2, 2 * H)
-    return tuple(_round_up(b, KB) for b in widths if H + _round_up(b, KB) < u_pad)
+    """The cold-union bucket widths a call plans with: (H // 2, 2 * H),
+    rounded up to KB, each leaving K = H + B below u_pad."""
+    return tuple(round_up(b, KB) for b in (H // 2, 2 * H) if H + round_up(b, KB) < u_pad)
 
 
 def compact_eligible(pre: Preprocessed, k: int, device: torch.device) -> bool:
@@ -270,7 +267,7 @@ def compact_eligible(pre: Preprocessed, k: int, device: torch.device) -> bool:
         return False
     if pre.filter_matrix is not None or pre.target_matrix is not None:
         return False
-    u_pad = max(_round_up(pre.m1.shape[1], KB), KB)
+    u_pad = max(round_up(pre.m1.shape[1], KB), KB)
     if _hot_height(u_pad) < KB:
         return False
     if min(k, pre.n_output_cols) > 1024:
@@ -352,14 +349,9 @@ def stage_panels(pre: Preprocessed, compute_dtype: str, *, u_pad: int, device, d
     and target vectors, and the user ranks as an int32 table of U + 1
     entries whose last is the sentinel u_pad (``rank_rows``). Returns
     (buckets, rank_table)."""
-    from .executor import compute_cast
-
     int8_mode = compute_dtype in ("int8", "int4")
     H = _hot_height(u_pad)
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
+    dev = functools.partial(upload, device=device)
     m1_t = pre.m1[pre.targets]
     if int8_mode:
         m1_t.data = np.rint(m1_t.data * pre.qscale1).astype(np.float32)
@@ -394,26 +386,12 @@ def stage_tiles(pre: Preprocessed, compute_dtype: str, *, tc: int, n_tiles: int,
     column vectors (and the allowed mask) in that layout. A call ranks the
     rows of each group with ``rank_rows``. Returns ((rows, cols, vals,
     yvecs), col_map)."""
-    from . import executor as ex
-
-    C = pre.n_output_cols
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
+    dev = functools.partial(upload, device=device)
     int8_mode = compute_dtype in ("int8", "int4")
     m2_csc = csc_quantized(pre.m2, pre.qscale2 if int8_mode else None)
-    tile_lists, col_map = ex.balance_columns(np.diff(m2_csc.indptr), n_tiles, tc)
-    rows, cols, vals = ex._stack_m2_tiles_balanced(m2_csc, tile_lists, tc, u_pad)
-    yvecs = {
-        name: dev(ex._vec_by_map(v, col_map, C))
-        for name, v in (("y_t", pre.Yt), ("y_c", pre.Yc), ("y_d", pre.Yd))
-    }
-    if pre.col_allowed is not None:
-        allowed = np.zeros(col_map.shape[0], dtype=np.uint8)
-        used = col_map < C
-        allowed[used] = pre.col_allowed[col_map[used]]
-        yvecs["allowed"] = dev(allowed)
+    tile_lists, col_map = balance_columns(np.diff(m2_csc.indptr), n_tiles, tc)
+    rows, cols, vals = stack_m2_tiles_balanced(m2_csc, tile_lists, tc, u_pad)
+    yvecs = {name: dev(v) for name, v in column_vectors(pre, col_map).items()}
     return (dev(rows), dev(cols), dev(vals), yvecs), col_map
 
 
@@ -430,15 +408,13 @@ def execute_compact(
     """Union-compacted execution (compact.py:456); same contract as
     executor.execute(): host (T, k) vals f32 and idx int32.
     `tile_fn="plain"` runs the kernels' plain versions even on a card."""
-    from . import executor as ex
-
     m1, m2, targets, k = pre.m1, pre.m2, pre.targets, pre.k
     T, U = targets.shape[0], m1.shape[1]
     C = pre.n_output_cols
 
-    compute_dtype, inv_scale = ex.resolve_compute_dtype(compute_dtype, pre)
+    compute_dtype, inv_scale = resolve_compute_dtype(compute_dtype, pre)
     int8_mode = compute_dtype in ("int8", "int4")
-    cdt = ex.compute_cast(compute_dtype)
+    cdt = compute_cast(compute_dtype)
     dense_item = torch.empty(0, dtype=cdt).element_size()
     if tile_fn == "plain":
         panel_fn = panel_topk.fused_panel_topk_plain
@@ -449,33 +425,29 @@ def execute_compact(
         gather_fn = gather.row_gather
         densify = scatter.densify_tiles
 
-    u_pad = max(_round_up(U, KB), KB)
+    u_pad = max(round_up(U, KB), KB)
     H = _hot_height(u_pad)
     tc = DEFAULT_TC if compute_dtype != "float32" else DEFAULT_TC // 2
-    tc = min(tc, _round_up(C, 128))
-    k_pad = _round_up(min(k, tc), 8)
+    tc = min(tc, round_up(C, 128))
+    k_pad = round_up(min(k, tc), 8)
 
     # ---- m1 side: plan + device lhs stacks (cached across calls) ----
     m1_key = (
         "compact_m1", pre.fp1, _fingerprint(targets, pre.Xt, pre.Xc, pre.Xd),
         compute_dtype, TM, H, cold_buckets(H, u_pad), str(device),
     )
-    cached = ex._cache_get(m1_key)
-    if cached is None:
-        with spans.span("stage") as stage:
-            ex._evict_stale("compact_m1", pre.fp1, m1_key)
-            cached = stage_panels(pre, compute_dtype, u_pad=u_pad, device=device,
-                                  densify=densify)
-            ex._stage_put(stage, m1_key, cached)
-    dev_buckets, rank_table = cached
+    dev_buckets, rank_table = cache.staged(
+        m1_key, pre.fp1,
+        lambda: stage_panels(pre, compute_dtype, u_pad=u_pad, device=device, densify=densify),
+    )
 
     # ---- group sizing under the device budget (compact.py:541) ----
     b2 = max((b["B"] for b in dev_buckets), default=0)
     misc = (
-        ex._device_bytes((dev_buckets, rank_table))
+        cache.device_bytes((dev_buckets, rank_table))
         + int(m2.nnz * 12 * 1.8)  # staged COO uploads
         + int(m2.nnz * 4 * 1.8)  # a group's ranked rows (G x p2 x 4), at most the whole stack
-        + ex.foreign_cache_bytes((pre.fp1, pre.fp2))
+        + cache.foreign_cache_bytes((pre.fp1, pre.fp2))
         + (1 << 30)
     )
     avail = int(budget_bytes * 0.88) - misc
@@ -498,23 +470,20 @@ def execute_compact(
         "compact_m2", pre.fp2, _fingerprint(pre.Yt, pre.Yc, pre.Yd, pre.col_allowed),
         compute_dtype, tc, n_tiles, u_pad, str(device),
     )
-    cached = ex._cache_get(m2_key)
-    if cached is None:
-        with spans.span("stage") as stage:
-            ex._evict_stale("compact_m2", pre.fp2, m2_key)
-            cached = stage_tiles(pre, compute_dtype, tc=tc, n_tiles=n_tiles, u_pad=u_pad,
-                                 device=device)
-            ex._stage_put(stage, m2_key, cached)
-    (t_rows, t_cols, t_vals, yvecs), col_map = cached
+    (t_rows, t_cols, t_vals, yvecs), col_map = cache.staged(
+        m2_key, pre.fp2,
+        lambda: stage_tiles(pre, compute_dtype, tc=tc, n_tiles=n_tiles, u_pad=u_pad,
+                            device=device),
+    )
 
-    ex.last_plan.clear()
-    ex.last_plan.update(
+    last_plan.clear()
+    last_plan.update(
         compute_dtype=compute_dtype, TM=TM, H=H, u_pad=u_pad, tc=tc, cg=cg,
         k_pad=k_pad, n_groups=n_groups, n_tiles=n_tiles,
         buckets=[(b["B"], len(b["panel_rows"])) for b in dev_buckets],
     )
 
-    pvec = torch.from_numpy(build_pvec(params, inv_scale)).to(device)
+    pvec = upload(build_pvec(params, inv_scale), device)
     flags = params.static_flags()
     carries = [
         (torch.full((len(b["panel_rows"]), TM, k), NEG_INF, dtype=torch.float32, device=device),

@@ -83,16 +83,10 @@ def fused_panel_topk(
     k_pad: int,
     tc: int,
     int8_mode: bool,
-    precision=None,
-    interpret=False,
 ):
     """Returns (vals, idx) of shape (n_tiles, k_pad, TM): the top-k_pad of
     each row within each tc-wide tile of the group, sorted descending, ids
-    global via pvec_ext[10] + tile offset.
-
-    `precision` and `interpret` are the JAX function's TPU knobs; they are
-    accepted for the same call signature and change nothing here (f32
-    always runs as true f32)."""
+    global via pvec_ext[10] + tile offset. f32 always runs as true f32."""
     if a.device.type == "cpu":
         return fused_panel_topk_plain(
             a, d, x_t, x_c, x_d, y_t, y_c, y_d, pvec_ext, bias, allowed, fmask, tmask,

@@ -25,7 +25,7 @@ the work itself:
     the ``bytes`` (device) and ``host_bytes`` the entry holds. Key
     computation stays outside, so no ``hash`` lies inside a ``stage``;
   - ``split``: the split-bf16x3 COO of a ``precision='high'`` call
-    (``executor.split_coo``), inside the ``stage`` that makes it;
+    (``staging.split_coo``), inside the ``stage`` that makes it;
     ``attrs["entries"]`` is the entries it gives out.
 
 A span's ``start`` and ``end`` are ``time.perf_counter()`` readings, the

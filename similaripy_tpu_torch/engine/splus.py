@@ -21,7 +21,8 @@ Extensions (keyword-only, defaulted so reference call sites work unchanged):
   mesh          : a ('rows', 'cols') DeviceMesh from
                   ``parallel.make_mesh``: every rank of the process group
                   makes the same call and gets the whole result
-                  (engine/sharded.py, engine/sym_sharded.py)
+                  (the router engine/executor.py::execute,
+                  engine/sym_sharded.py)
 
 `num_threads` is accepted for API compatibility and ignored. `block_size`
 keeps the reference's tri-state semantics (None = single tile, 0 = auto,
@@ -173,12 +174,7 @@ def s_plus(
         )
 
         progress.set_description("Computing")
-        run, on_mesh = execute, {}
-        if mesh is not None:
-            from .sharded import execute_sharded
-
-            run, on_mesh = execute_sharded, {"mesh": mesh}
-        vals, idx = run(
+        vals, idx = execute(
             pre,
             params,
             block_size_hint=block_size,
@@ -186,7 +182,7 @@ def s_plus(
             precision=precision,
             progress=progress,
             device=device,
-            **on_mesh,
+            mesh=mesh,
         )
         if timing:
             spans.root().attrs.update(route=executor.last_route, targets=n_targets,

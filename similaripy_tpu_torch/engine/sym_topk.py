@@ -215,20 +215,16 @@ def fused_sym_topk(
     k: int,
     tc: int,
     int8_mode: bool,
-    precision=None,
     x2=None,  # asymmetric epilogue: (xt, xc, xd) at the tile's items (tc,)
     y2=None,  # asymmetric epilogue: (yt, yc, yd) at the anchor's items (sw,)
     split_f32=False,
-    interpret=False,
 ):
     """Returns (rvals, ridx, cvals, cidx): the row-side carry merged with
     this block's columns and the col-side carry merged with its anchor
     rows (module docstring).
 
     With `split_f32` both operands are bf16 [hi; lo] stacks along the user
-    axis. `precision` and `interpret` are the JAX function's TPU knobs;
-    they are accepted for the same call signature and change nothing
-    here."""
+    axis."""
     split_f32 = bool(split_f32)
     if (x2 is None) != (y2 is None):
         raise ValueError("x2 and y2 go together (the asymmetric epilogue)")

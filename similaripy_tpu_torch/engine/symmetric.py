@@ -32,7 +32,7 @@ upper block triangle once:
   - an f32 call with ``precision='high'`` runs K2 in its split-bf16x3 mode
     (symmetric.py:877-896 of the JAX package): the tiles are [hi; lo] bf16
     stacks 2 u_pad deep, anchors and inner tiles alike, densified by K5
-    from the split COO (``executor.split_coo``); data that bf16 holds
+    from the split COO (``staging.split_coo``); data that bf16 holds
     exactly rides compute_dtype='bfloat16' instead.
 
 The result equals the general executor's: the same epilogue, the same
@@ -54,19 +54,18 @@ import torch
 
 from ..ops.csr import csc_quantized
 from ..parallel import mesh as pmesh
-from . import scatter, spans, sym_topk
+from . import cache, scatter, spans, sym_topk
 from .params import SPlusParams, build_pvec
 from .preprocess import Preprocessed, _fingerprint
+from .staging import (
+    bf16_exact, canonical, compute_cast, last_plan, resolve_compute_dtype, round_up, split_coo,
+    stack_m2_tiles_balanced, upload, vec_by_map,
+)
 from .sym_sharded import pair_schedule, rank_work, schedule_anatomy
-
-NEG_INF = float("-inf")
+from .tile_topk import NEG_INF
 
 # calls of the k_pad > MAX_KERNEL_K_PAD branch (plain PyTorch per block)
 wide_k_calls = 0
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
 
 
 # ---------------------------------------------------------------------------
@@ -176,9 +175,9 @@ def _plan(C: int, U: int, nnz: int, compute_dtype: str, budget: int,
     `compute_dtype` "split" plans the split-bf16x3 mode: a tile of two bf16
     halves, the f32 call's 4 bytes an element (its COO, twice the
     entries, comes in `nnz`)."""
-    u_pad = max(_round_up(U, 128), 128)
+    u_pad = max(round_up(U, 128), 128)
     isize = {"bfloat16": 2, "int8": 1, "int4": 1}.get(compute_dtype, 4)
-    tc = min(4096 if isize <= 2 else 2048, _round_up(C, 128))
+    tc = min(4096 if isize <= 2 else 2048, round_up(C, 128))
     n_tiles = math.ceil(C / tc)
 
     tile = tc * u_pad * isize
@@ -220,8 +219,6 @@ def prep_coo_symmetric(pre: Preprocessed, compute_dtype: str, tc: int,
     COO of the tiles' [hi; lo] stacks (users below 2 u_pad, sentinel
     2 u_pad, each (n_tiles_dev, 2 p2)); `item_map` maps a device slot to
     its item (C for padding)."""
-    from .executor import _stack_m2_tiles_balanced, canonical, split_coo
-
     C = pre.n_output_cols
     int_mode = compute_dtype in ("int8", "int4")
     m2_csc = csc_quantized(pre.m2, pre.qscale2 if int_mode else None)
@@ -240,7 +237,7 @@ def prep_coo_symmetric(pre: Preprocessed, compute_dtype: str, tc: int,
     item_map = np.full(n_tiles_dev * tc, C, dtype=np.int64)
     for t, items in enumerate(tile_lists):
         item_map[t * tc : t * tc + items.shape[0]] = items
-    coo = _stack_m2_tiles_balanced(m2_csc, tile_lists, tc, u_pad)
+    coo = stack_m2_tiles_balanced(m2_csc, tile_lists, tc, u_pad)
     if split:
         coo = split_coo(*coo, u_pad, axis=0)
     return dict(zip(("ru", "sl", "vv"), coo)), item_map
@@ -249,11 +246,9 @@ def prep_coo_symmetric(pre: Preprocessed, compute_dtype: str, tc: int,
 def prep_vecs_symmetric(pre: Preprocessed, item_map: np.ndarray, tc: int,
                         n_tiles_dev: int) -> dict:
     """The cheap per-call prep: X/Y epilogue vectors in the slot layout."""
-    from .executor import _vec_by_map
-
     C = pre.n_output_cols
     return {
-        name: _vec_by_map(v, item_map, C).reshape(n_tiles_dev, tc)
+        name: vec_by_map(v, item_map, C).reshape(n_tiles_dev, tc)
         for name, v in (("y_t", pre.Yt), ("y_c", pre.Yc), ("y_d", pre.Yd),
                         ("x_t", pre.Xt), ("x_c", pre.Xc), ("x_d", pre.Xd))
     }
@@ -268,36 +263,30 @@ def cached_prep_symmetric(pre: Preprocessed, compute_dtype: str, tc: int,
     different similarities over one matrix re-stacks nothing. Returns
     (device COO, device vectors, item_map). A miss of either level is a
     ``stage`` span of a traced call (kind "sym_coo" or "sym_vecs")."""
-    from .executor import _cache_get, _device_bytes, _evict_stale, _stage_put
 
-    def upload(arrays):
-        return {name: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                for name, a in arrays.items()}
+    def upload_all(arrays):
+        return {name: upload(a, device) for name, a in arrays.items()}
+
+    def stage_coo():
+        coo_host, item_map = prep_coo_symmetric(pre, compute_dtype, tc, n_tiles_dev, u_pad,
+                                                split)
+        return upload_all(coo_host), item_map, {}
 
     int_mode = compute_dtype in ("int8", "int4")
     coo_key = (
         "sym_coo", pre.fp2, pre.qscale2 if int_mode else None, int_mode, split,
         tc, n_tiles_dev, u_pad, str(device),
     )
-    cached = _cache_get(coo_key)
-    if cached is None:
-        with spans.span("stage") as stage:
-            _evict_stale("sym_coo", pre.fp2, coo_key)
-            coo_host, item_map = prep_coo_symmetric(pre, compute_dtype, tc, n_tiles_dev,
-                                                    u_pad, split)
-            cached = (upload(coo_host), item_map, {})
-            _stage_put(stage, coo_key, cached)
-    dev_coo, item_map, vec_cache = cached
+    dev_coo, item_map, vec_cache = cache.staged(coo_key, pre.fp2, stage_coo)
     vec_key = (_fingerprint(pre.Yt, pre.Yc, pre.Yd), _fingerprint(pre.Xt, pre.Xc, pre.Xd))
     vecs = vec_cache.get(vec_key)
     if vecs is None:
         with spans.span("stage") as stage:
-            vecs = upload(prep_vecs_symmetric(pre, item_map, tc, n_tiles_dev))
+            vecs = upload_all(prep_vecs_symmetric(pre, item_map, tc, n_tiles_dev))
             if len(vec_cache) >= 16:
                 vec_cache.pop(next(iter(vec_cache)))
             vec_cache[vec_key] = vecs
-            if spans.ACTIVE:
-                stage.attrs.update(kind="sym_vecs", bytes=_device_bytes(vecs), host_bytes=0)
+            cache.record(stage, "sym_vecs", vecs)
     return dev_coo, vecs, item_map
 
 
@@ -352,8 +341,6 @@ def execute_symmetric(
     (for comparisons only). With `mesh` (``parallel.make_mesh``) this rank
     runs its share of the pair schedule (``sym_sharded.pair_schedule``) on
     the budget agreed over ranks, and every rank returns the whole result."""
-    from . import executor as ex
-
     t_enter = time.perf_counter()
     C = pre.n_output_cols
     U = pre.m1.shape[1]
@@ -361,23 +348,23 @@ def execute_symmetric(
     R_sh, C_sh = pmesh.axis_sizes(mesh)
     r_me, c_me = pmesh.coordinate(mesh)
     N, me = R_sh * C_sh, r_me * C_sh + c_me
-    compute_dtype, inv_scale = ex.resolve_compute_dtype(compute_dtype, pre)
+    compute_dtype, inv_scale = resolve_compute_dtype(compute_dtype, pre)
     # precision='high' (symmetric.py:877-896): both sides are the one
     # matrix, so 'both', or one exact bf16 phase when bf16 holds its values
     f32x3 = None
     if compute_dtype == "float32" and precision == "high":
-        if ex._bf16_exact(pre.fp2, pre.m2):
+        if bf16_exact(pre.fp2, pre.m2):
             compute_dtype = "bfloat16"
         else:
             f32x3 = "both"
     int8_mode = compute_dtype in ("int8", "int4")
-    cdt = ex.compute_cast(compute_dtype)
+    cdt = compute_cast(compute_dtype)
 
     # cached uploads of OTHER matrices occupy real device memory: plan
     # around them, floored at a quarter of the budget; every rank plans
     # with the smallest such budget
     budget = budget_bytes
-    foreign = ex.foreign_cache_bytes((pre.fp1, pre.fp2))
+    foreign = cache.foreign_cache_bytes((pre.fp1, pre.fp2))
     if foreign > (budget * 3) // 4:
         warnings.warn(
             f"device cache holds {foreign / 2**30:.1f} GiB of other matrices' "
@@ -391,7 +378,7 @@ def execute_symmetric(
 
     # carry depth: no row has more than C candidates
     k_kern = min(k, C)
-    k_pad = _round_up(k_kern, 8)
+    k_pad = round_up(k_kern, 8)
     if k_pad > sym_topk.MAX_KERNEL_K_PAD:
         f32x3 = None  # the plain branch multiplies in true f32 (symmetric.py:913-920)
     split = f32x3 is not None
@@ -426,8 +413,8 @@ def execute_symmetric(
     k_pad_r, k_pad_c = sym_topk.sym_k_pads(k_kern, tc, sw)
     anatomy = schedule_anatomy(n_tiles=n_tiles_dev, gt=gt, N=N)
 
-    ex.last_plan.clear()
-    ex.last_plan.update(
+    last_plan.clear()
+    last_plan.update(
         compute_dtype=compute_dtype, f32x3=f32x3, tc=tc, gt=gt, u_pad=u_pad, k_pad=k_pad,
         n_tiles=n_tiles_dev, n_groups=n_groups, sw=sw, pairs=len(schedule),
         asym=asym, mesh=(R_sh, C_sh), rank=me, budget=budget,
@@ -537,7 +524,7 @@ def execute_symmetric(
             done_rows = done
     if progress is not None and done_rows < C:
         progress.update(C - done_rows)
-    ex.last_plan["stages"] = {
+    last_plan["stages"] = {
         "prep_s": t_prep - t_enter, "sweep_s": sweep_s, "pack_s": pack_s,
     }
     # device slots -> items; -inf slots carry arbitrary ids, dropped in

@@ -278,11 +278,7 @@ def fused_tile_topk(
     flags: tuple,
     k_pad: int,
     int8_mode: bool,
-    precision=None,
     split_f32=False,
-    tm=None,
-    kb=None,
-    interpret=False,
 ):
     """Returns (vals, idx) of shape (k_pad, trp): per-row top-k_pad of the
     fused similarity tile, sorted descending, ids global via col_base.
@@ -290,9 +286,7 @@ def fused_tile_topk(
     With `split_f32` (True or 'both', 'rhs', 'lhs') the operands are bf16
     stacks: `split_bf16x3` of the f32 side(s) along the contraction axis,
     a plain bf16 cast of the side that bf16 holds exactly (module
-    docstring). `precision`, `tm`, `kb` and `interpret` are the JAX
-    function's TPU knobs; they are accepted for the same call signature and
-    change nothing here."""
+    docstring)."""
     split = split_mode(split_f32)
     if m1_dense.device.type == "cpu":
         return fused_tile_topk_plain(

@@ -1,5 +1,5 @@
-"""The port's device-resident cache (similaripy_tpu_torch.engine.executor,
-cache section) and its public cache_info / clear_caches.
+"""The port's device-resident cache (similaripy_tpu_torch.engine.cache) and
+its public cache_info / clear_caches.
 
 Mirrors the JAX package's cache tests (tests/test_advice_regressions.py,
 tests/test_edge_cases.py::test_cache_info_reflects_residents): an in-place
@@ -20,6 +20,7 @@ import torch
 import similaripy_tpu as jsim
 import similaripy_tpu_torch as tsim
 from oracles import check_sum
+from similaripy_tpu_torch.engine import cache
 from similaripy_tpu_torch.engine import executor as ex
 
 torch.set_num_threads(2)
@@ -68,37 +69,37 @@ def test_clear_caches_api():
 
 def test_device_cache_is_lru():
     """_cache_get refreshes recency: a hot entry survives colder ones."""
-    for i in range(ex._DEVICE_CACHE_CAP):
-        ex._cache_put(("t", i), i)
-    assert ex._cache_get(("t", 0)) == 0  # touch the oldest
-    ex._cache_put(("t", "new"), 99)  # one over the cap
-    assert ex._cache_get(("t", 0)) == 0, "hot entry was evicted"
-    assert ex._cache_get(("t", 1)) is None, "LRU entry survived"
+    for i in range(cache._DEVICE_CACHE_CAP):
+        cache._cache_put(("t", i), i)
+    assert cache._cache_get(("t", 0)) == 0  # touch the oldest
+    cache._cache_put(("t", "new"), 99)  # one over the cap
+    assert cache._cache_get(("t", 0)) == 0, "hot entry was evicted"
+    assert cache._cache_get(("t", 1)) is None, "LRU entry survived"
 
 
 def test_evict_stale_drops_other_geometries():
     fp, other_fp = "a" * 40, "b" * 40
-    ex._cache_put(("m2", fp, "x", "float32", 512, 2, 128), 1)
-    ex._cache_put(("m2", fp, "x", "int8", 1024, 4, 256), 2)
-    ex._cache_put(("m2", other_fp, "x", "int8", 1024, 4, 256), 3)
+    cache._cache_put(("m2", fp, "x", "float32", 512, 2, 128), 1)
+    cache._cache_put(("m2", fp, "x", "int8", 1024, 4, 256), 2)
+    cache._cache_put(("m2", other_fp, "x", "int8", 1024, 4, 256), 3)
     keep = ("m2", fp, "x", "int8", 1024, 4, 256)
-    ex._evict_stale("m2", fp, keep)
-    assert ex._cache_get(("m2", fp, "x", "float32", 512, 2, 128)) is None
-    assert ex._cache_get(keep) == 2
-    assert ex._cache_get(("m2", other_fp, "x", "int8", 1024, 4, 256)) == 3
+    cache._evict_stale("m2", fp, keep)
+    assert cache._cache_get(("m2", fp, "x", "float32", 512, 2, 128)) is None
+    assert cache._cache_get(keep) == 2
+    assert cache._cache_get(("m2", other_fp, "x", "int8", 1024, 4, 256)) == 3
 
 
 def test_host_cache_byte_budget(monkeypatch):
     """Host-resident entries (NumPy arrays) are bounded by bytes, oldest
     evicted first, the newest always kept."""
-    monkeypatch.setattr(ex, "_HOST_CACHE_MAX_BYTES", 1000)
+    monkeypatch.setattr(cache, "_HOST_CACHE_MAX_BYTES", 1000)
     big = np.zeros(150, np.float64)  # 1200 bytes each
-    ex._cache_put(("sel", "one"), {"fil_rows": big})
-    ex._cache_put(("dev", "x"), 42)  # entries without host arrays stay
-    ex._cache_put(("sel", "two"), {"fil_rows": big.copy()})
-    assert ex._cache_get(("sel", "one")) is None, "oldest sel survived"
-    assert ex._cache_get(("sel", "two")) is not None
-    assert ex._cache_get(("dev", "x")) == 42
+    cache._cache_put(("sel", "one"), {"fil_rows": big})
+    cache._cache_put(("dev", "x"), 42)  # entries without host arrays stay
+    cache._cache_put(("sel", "two"), {"fil_rows": big.copy()})
+    assert cache._cache_get(("sel", "one")) is None, "oldest sel survived"
+    assert cache._cache_get(("sel", "two")) is not None
+    assert cache._cache_get(("dev", "x")) == 42
 
 
 def test_selector_cache_detects_filter_mutation():
@@ -126,7 +127,7 @@ def test_symmetric_budget_floor_warns(monkeypatch):
     symmetric planner floors it at a quarter, and says so."""
     monkeypatch.setattr(ex, "hbm_budget_bytes", lambda device: 64 << 20)
     m = _rand((30, 20), seed=3, density=0.3)
-    ex._cache_put(("m2", "f" * 40, "geom"), torch.zeros(14 << 20))  # 56 MB
+    cache._cache_put(("m2", "f" * 40, "geom"), torch.zeros(14 << 20))  # 56 MB
     with pytest.warns(RuntimeWarning, match="other matrices"):
         tsim.cosine(m, k=5, **CPU)
     assert ex.last_route == "symmetric"
@@ -140,15 +141,15 @@ def test_foreign_cache_bytes_accounting():
     a = _rand((50, 30), seed=5)
     b = _rand((40, 30), seed=6)
     tsim.dot_product(a, b.T.tocsr(), k=5, **CPU)
-    assert ex._DEVICE_CACHE, "expected device-cache entries after a call"
-    assert ex.foreign_cache_bytes(()) > 0  # with no fingerprint kept, all are foreign
+    assert cache._DEVICE_CACHE, "expected device-cache entries after a call"
+    assert cache.foreign_cache_bytes(()) > 0  # with no fingerprint kept, all are foreign
     fps = {
-        part for key in ex._DEVICE_CACHE for part in key
+        part for key in cache._DEVICE_CACHE for part in key
         if isinstance(part, str) and len(part) == 40  # sha1 hex digests
     }
-    assert ex.foreign_cache_bytes(tuple(fps)) == 0
+    assert cache.foreign_cache_bytes(tuple(fps)) == 0
     tsim.clear_caches()
-    assert ex.foreign_cache_bytes(()) == 0
+    assert cache.foreign_cache_bytes(()) == 0
 
 
 def test_cache_info_reflects_residents():

@@ -12,7 +12,7 @@ import torch
 
 import similaripy_tpu_torch as tsim
 from oracles import py_cosine
-from similaripy_tpu_torch.engine import compact, executor, scatter, spans, splus
+from similaripy_tpu_torch.engine import compact, executor, scatter, spans, splus, staging
 from similaripy_tpu_torch.engine.preprocess import preprocess
 
 torch.set_num_threads(2)
@@ -119,7 +119,7 @@ def test_device_ranking_equals_the_host_remap(dtype):
     the dense table K5 builds from it."""
     pre = preprocess(ITEMS, ITEMS.T, k=K, target_rows=FIRST)
     U = ITEMS.shape[1]
-    u_pad = compact._round_up(U, compact.KB)
+    u_pad = staging.round_up(U, compact.KB)
     H = compact._hot_height(u_pad)
     cpu = torch.device("cpu")
     _buckets, table = compact.stage_panels(pre, dtype, u_pad=u_pad, device=cpu,
@@ -137,7 +137,7 @@ def test_device_ranking_equals_the_host_remap(dtype):
     host_rows = rows.numpy()
     assert (host_rows == u_pad).any() and (host_rows < U).any()
     assert ((host_rows < U) | (host_rows == u_pad)).all()
-    cdt = executor.compute_cast(dtype)
+    cdt = staging.compute_cast(dtype)
     for t0 in range(0, n_tiles, G):
         got = compact.rank_rows(rows[t0:t0 + G], table)
         part = host_rows[t0:t0 + G]

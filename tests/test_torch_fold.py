@@ -20,7 +20,7 @@ import similaripy_tpu as jsim
 import similaripy_tpu_torch as tsim
 from oracles import check_sum
 from similaripy_tpu.engine import executor as jex
-from similaripy_tpu_torch.engine import executor
+from similaripy_tpu_torch.engine import cache, executor
 from torch_mesh_cases import knn_model, ratings
 
 torch.set_num_threads(2)
@@ -263,7 +263,7 @@ def test_folded_and_masked_never_share_a_cached_w(data):
     wt = w.T.tocsr()
 
     def m2_keys():
-        return [k for k in executor._DEVICE_CACHE if k[0] == "m2"]
+        return [k for k in cache._DEVICE_CACHE if k[0] == "m2"]
 
     folded = tsim.dot_product(urm, wt, k=10, filter_cols=urm, **CPU)
     (key,) = m2_keys()

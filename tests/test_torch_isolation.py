@@ -189,7 +189,7 @@ def test_chip_smoke_fails_without_a_card():
 
 
 def test_mesh_is_not_ported():
-    """mesh= is ported now (engine/sharded.py); a mesh call without the
+    """mesh= is ported now (engine/executor.py::execute); a mesh call without the
     initialized process group raises instead of running on one device."""
     with pytest.raises(RuntimeError, match="process group"):
         tsim.cosine(_small(), verbose=False, device="cpu", mesh=object())

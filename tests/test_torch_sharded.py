@@ -1,5 +1,6 @@
-"""The port's grouped sharded executor (``engine/sharded.py``) on gloo
-worlds of CPU processes, against the JAX package.
+"""The port's grouped sharded route (the router ``engine/executor.py::execute``
+with ``mesh=``, into ``execute_grouped``) on gloo worlds of CPU processes,
+against the JAX package.
 
 The counterparts of tests/test_sharded.py (oracle cosine, the similarities,
 a filter_cols matrix, target rows and columns, uneven rows; with an

@@ -34,7 +34,7 @@ import torch_mesh_cases as mc
 from oracles import check_sum, generate_random_matrix, py_cosine, py_rp3beta, py_tversky, top_k
 from similaripy_tpu.engine import pallas_kernels as pk
 from similaripy_tpu.engine.executor import densify as jax_densify
-from similaripy_tpu_torch.engine import executor, scatter, sym_topk, symmetric, tile_topk
+from similaripy_tpu_torch.engine import executor, scatter, staging, sym_topk, symmetric, tile_topk
 from torch_k1_cases import SPLIT_CASES, assert_same, make_split_case, run_port_split
 from torch_k2_cases import SPLIT_CASES as K2_SPLIT_CASES
 from torch_k2_cases import EPILOGUES, case_id, make_inputs, torch_fn
@@ -105,7 +105,7 @@ def test_split_tile_coo_densifies_to_the_split_stack(seed):
         cells = rng.choice(u_pad * tc, n, replace=False)
         ru[t, :n], sl[t, :n] = cells // tc, cells % tc
         vv[t, :n] = vals[t * p2:t * p2 + n]
-    rows, cols, v2 = executor.split_coo(ru, sl, vv, u_pad, axis=0)
+    rows, cols, v2 = staging.split_coo(ru, sl, vv, u_pad, axis=0)
     got = scatter.densify_tiles(*map(torch.from_numpy, (rows, cols, v2)),
                                 u_pad=2 * u_pad, tc=tc, cdt=torch.bfloat16)
     assert got.shape == (g, 2 * u_pad, tc) and got.dtype == torch.bfloat16
@@ -123,7 +123,7 @@ def test_split_panel_coo_densifies_to_the_split_stack():
     cells = rng.choice(trp * u_pad, n, replace=False)
     pr, pc = (cells // u_pad).astype(np.int32), (cells % u_pad).astype(np.int32)
     pv = _hard_values(n, 5)
-    rows, cols, v2 = executor.split_coo(pr, pc, pv, u_pad, axis=1)
+    rows, cols, v2 = staging.split_coo(pr, pc, pv, u_pad, axis=1)
     got = executor.densify((trp, 2 * u_pad), *map(torch.from_numpy, (rows, cols, v2)),
                            torch.bfloat16)
     f32 = jax_densify((trp, u_pad), jnp.asarray(pr), jnp.asarray(pc), jnp.asarray(pv),
@@ -141,11 +141,11 @@ def test_repeated_entries_are_summed_before_the_split():
     vals = np.array([1 + 2.0 ** -9, 1 + 2.0 ** -9, 0.3, 1.7, 0.11, 2.0 ** -12], np.float32)
     m = sp.csr_array((vals, cols, np.array([0, 2, 3, 6])), shape=(3, 4))
     assert not m.has_canonical_format
-    c = executor.canonical(m)
+    c = staging.canonical(m)
     assert c.nnz == 3 and m.nnz == 6  # the input is left as it was
     pr = np.repeat(np.arange(3, dtype=np.int32), np.diff(c.indptr))
     got = executor.densify((3, 8), *map(torch.from_numpy,
-                                        executor.split_coo(pr, c.indices.astype(np.int32),
+                                        staging.split_coo(pr, c.indices.astype(np.int32),
                                                            c.data, 4, axis=1)),
                            torch.bfloat16)
     dense = np.zeros((3, 4), np.float32)
@@ -154,26 +154,26 @@ def test_repeated_entries_are_summed_before_the_split():
     np.testing.assert_array_equal(got.float().numpy().view(np.uint32), _bits(ref))
     # without the sum, the halves of the repeats add up to another stack
     pr0 = np.repeat(np.arange(3, dtype=np.int32), np.diff(m.indptr))
-    raw = executor.densify((3, 8), *map(torch.from_numpy, executor.split_coo(
+    raw = executor.densify((3, 8), *map(torch.from_numpy, staging.split_coo(
         pr0, m.indices.astype(np.int32), m.data, 4, axis=1)), torch.float32)
     assert not np.array_equal(raw.numpy().view(np.uint32), _bits(ref))
 
 
 def test_bf16_exact_detector():
-    """executor.py's _bf16_exact, judged in PyTorch on what a densify
+    """staging.py's bf16_exact, judged in PyTorch on what a densify
     holds (repeated entries summed)."""
     def csr(v):
         v = np.asarray(v, np.float32)
         return sp.csr_array((v, (np.zeros(v.size, int), np.arange(v.size))), shape=(1, 8))
 
-    assert executor._bf16_exact(("t", 1), csr([1.0, 5.0, 130.0, 256.0]))
-    assert not executor._bf16_exact(("t", 2), csr([0.1]))
-    assert not executor._bf16_exact(("t", 3), csr([257.0]))  # 9 significant bits
-    assert executor._bf16_exact(("t", 4), csr([]))
+    assert staging.bf16_exact(("t", 1), csr([1.0, 5.0, 130.0, 256.0]))
+    assert not staging.bf16_exact(("t", 2), csr([0.1]))
+    assert not staging.bf16_exact(("t", 3), csr([257.0]))  # 9 significant bits
+    assert staging.bf16_exact(("t", 4), csr([]))
     # 255 and 2 are exact, their sum 257 is not
     dup = sp.csr_array((np.array([255.0, 2.0], np.float32), np.array([2, 2]),
                         np.array([0, 2])), shape=(1, 8))
-    assert not executor._bf16_exact(("t", 5), dup)
+    assert not staging.bf16_exact(("t", 5), dup)
 
 
 # ---------------------------------------------------------------------------
