@@ -34,6 +34,8 @@ _MISS = object()
 
 # lookups by kind since the last clear()
 _CACHE_COUNTS: dict = {}
+# misses by kind whose entry the device built from uploaded source arrays
+_CARD_BUILDS: dict = {}
 
 
 def _kind(key) -> str:
@@ -124,6 +126,11 @@ def staged(key, fp, build):
     return value
 
 
+def count_card_build(kind: str) -> None:
+    """Counts a miss of `kind` whose entry the device built."""
+    _CARD_BUILDS[kind] = _CARD_BUILDS.get(kind, 0) + 1
+
+
 def foreign_cache_bytes(keep_fps: tuple) -> int:
     """Device bytes held by cache entries of OTHER matrices.
 
@@ -148,9 +155,10 @@ def clear_device_cache() -> None:
 
 
 def clear() -> None:
-    """Drop every entry and the lookup counts."""
+    """Drop every entry, the lookup counts and the card builds."""
     _DEVICE_CACHE.clear()
     _CACHE_COUNTS.clear()
+    _CARD_BUILDS.clear()
 
 
 def info() -> dict:
@@ -172,4 +180,5 @@ def info() -> dict:
         "by_kind": by_kind,
         "hits": {kind: c["hits"] for kind, c in _CACHE_COUNTS.items()},
         "misses": {kind: c["misses"] for kind, c in _CACHE_COUNTS.items()},
+        "card_builds": dict(_CARD_BUILDS),
     }

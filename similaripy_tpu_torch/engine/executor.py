@@ -835,12 +835,14 @@ def cache_info() -> dict:
 
     Returns ``{"entries", "device_bytes", "host_bytes", "by_kind": {kind:
     {"entries", "device_bytes", "host_bytes"}}, "hits": {kind: n},
-    "misses": {kind: n}, "prep_entries", "prep_hits", "prep_misses",
-    "oom_retries"}`` where ``kind`` is the key's tag ("m2", "m1", "sel",
-    "sym_coo", "compact_m1", "compact_m2"; "compact_m2" keys on matrix2
-    and its column vectors only, so calls on fixed ratings that change
-    their targets hit it), ``hits`` and ``misses`` count the device cache's
-    lookups, ``prep_entries`` the host preprocess cache,
+    "misses": {kind: n}, "card_builds": {kind: n}, "prep_entries",
+    "prep_hits", "prep_misses", "oom_retries"}`` where ``kind`` is the
+    key's tag ("m2", "m1", "sel", "sym_coo", "compact_m1", "compact_m2";
+    "compact_m2" keys on matrix2 and its column vectors only, so calls on
+    fixed ratings that change their targets hit it), ``hits`` and
+    ``misses`` count the device cache's lookups, ``card_builds`` the
+    misses whose entry the device built from matrix2's uploaded CSC
+    arrays ("sym_coo"), ``prep_entries`` the host preprocess cache,
     ``prep_hits`` and ``prep_misses`` its lookups, and ``oom_retries`` the
     calls that ran out of device memory and were replanned."""
     prep = prep_cache_counts()

@@ -22,8 +22,11 @@ the work itself:
   - ``stage``: the work of one device-cache miss in an executor (host
     stacking and upload); ``attrs`` hold the cache kind (the key's tag,
     or ``"sym_vecs"`` for the symmetric route's nested vector layouts) and
-    the ``bytes`` (device) and ``host_bytes`` the entry holds. Key
-    computation stays outside, so no ``hash`` lies inside a ``stage``;
+    the ``bytes`` (device) and ``host_bytes`` the entry holds, and for
+    the symmetric route's "sym_coo", whose stacks the card builds from
+    matrix2's uploaded CSC arrays, ``upload_bytes``, what crossed to the
+    card. Key computation stays outside, so no ``hash`` lies inside a
+    ``stage``;
   - ``split``: the split-bf16x3 COO of a ``precision='high'`` call
     (``staging.split_coo``), inside the ``stage`` that makes it;
     ``attrs["entries"]`` is the entries it gives out.
@@ -147,6 +150,11 @@ def _close_call() -> None:
 def root():
     """The open call's root span, or None."""
     return _stack[0] if ACTIVE else None
+
+
+def current():
+    """The innermost open span of the open call, or None."""
+    return _stack[-1] if ACTIVE else None
 
 
 def span(name: str):

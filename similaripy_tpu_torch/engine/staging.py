@@ -182,6 +182,63 @@ def stack_m2_tiles_balanced(m2_csc, tile_lists, tc: int, u_pad: int):
     return rows, cols, vals
 
 
+def stack_m2_tiles_device(m2_csc, tile_lists, u_pad: int, device, qscale=None):
+    """stack_m2_tiles_balanced's stacks, built on `device` from the CSC's
+    own index and value arrays, element for element equal to the host
+    stacks uploaded. `tile_lists` partition the columns, as the symmetric
+    layout's do; `qscale` snaps the values to rint(v * qscale), as
+    ``csc_quantized`` does. The host computes, per column, its slot and
+    where its first entry lands in the flat (n_tiles, p2) stacks
+    (O(columns)); the device expands those to every entry and writes the
+    users, slots and values in, each column's entries in CSC order.
+    Returns ((rows, cols, vals), the bytes uploaded)."""
+    n_tiles, C = len(tile_lists), m2_csc.shape[1]
+    indptr = m2_csc.indptr.astype(np.int64)
+    col_nnz = np.diff(indptr)
+    order = np.concatenate(tile_lists).astype(np.int64)
+    if order.shape[0] != C:
+        raise ValueError("tile_lists must partition the columns")
+    sizes = np.array([lst.shape[0] for lst in tile_lists], dtype=np.int64)
+    tile_of = np.repeat(np.arange(n_tiles, dtype=np.int64), sizes)
+    counts = col_nnz[order]
+    tile_nnz = np.bincount(tile_of, weights=counts, minlength=n_tiles).astype(np.int64)
+    p2 = pad_bucket(int(tile_nnz.max()))
+    # exclusive running sums in tile-major order, less the tile's own start
+    first = np.cumsum(counts) - counts
+    tile_first = np.cumsum(tile_nnz) - tile_nnz
+    item_first = np.cumsum(sizes) - sizes
+    # entry pos (a CSC position less indptr[0]) of column c lands at pos + shift[c]
+    shift = np.empty(C, dtype=np.int64)
+    shift[order] = tile_of * p2 + first - tile_first[tile_of] - (indptr[order] - indptr[0])
+    slot = np.empty(C, dtype=np.int32)
+    slot[order] = np.arange(C, dtype=np.int64) - item_first[tile_of]
+    lo, hi = int(indptr[0]), int(indptr[-1])
+    host = (col_nnz.astype(np.int32), shift, slot,
+            m2_csc.indices[lo:hi].astype(np.int32, copy=False),
+            m2_csc.data[lo:hi].astype(np.float32, copy=False))
+    col_nnz_d, shift_d, slot_d, users_d, vals_d = (upload(a, device) for a in host)
+    nnz = hi - lo
+    col = torch.repeat_interleave(col_nnz_d, output_size=nnz)  # each entry's column
+    dest = shift_d.index_select(0, col)
+    dest += torch.arange(nnz, dtype=torch.int64, device=device)
+    rows = torch.full((n_tiles * p2,), u_pad, dtype=torch.int32, device=device)
+    cols = torch.zeros(n_tiles * p2, dtype=torch.int32, device=device)
+    vals = torch.zeros(n_tiles * p2, dtype=torch.float32, device=device)
+    rows.index_copy_(0, dest, users_d)
+    cols.index_copy_(0, dest, slot_d.index_select(0, col))
+    vals.index_copy_(0, dest, vals_d if qscale is None else torch.round(vals_d * qscale))
+    settle(vals)
+    stacks = tuple(a.view(n_tiles, p2) for a in (rows, cols, vals))
+    return stacks, sum(a.nbytes for a in host)
+
+
+def settle(t: torch.Tensor) -> None:
+    """While a call is traced, waits for the card's work queued so far, so
+    that the open span ends after it rather than at its launch."""
+    if spans.ACTIVE and t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
 def vec_by_map(v: Optional[np.ndarray], col_map: np.ndarray, n_cols: int,
                fill: float = 1.0) -> np.ndarray:
     """Reindex a per-column vector into the balanced device layout."""
@@ -227,22 +284,29 @@ def split_coo(rows, cols, vals, n: int, axis: int):
     result over 2n equals split_bf16x3 of the f32 densify, bit for bit,
     when no place repeats. Entries already out of range along `axis` (>= n:
     the tile stacks' padding sentinels) move to 2n, still out of range.
-    NumPy arrays of any leading shape; the halves are concatenated along
+    NumPy arrays (the result is NumPy) or tensors (the result stays on
+    their device), of any leading shape; the halves are concatenated along
     the last axis. A traced call's span ``split`` (``attrs["entries"]``:
     the entries given out)."""
     with spans.span("split") as span:
-        hi, lo = split_bf16x3_parts(torch.from_numpy(np.ascontiguousarray(vals, dtype=np.float32)))
-        hi, lo = hi.to(torch.float32).numpy(), lo.to(torch.float32).numpy()
+        host = isinstance(vals, np.ndarray)
+        if host:
+            rows, cols = torch.from_numpy(rows), torch.from_numpy(cols)
+            vals = torch.from_numpy(np.ascontiguousarray(vals, dtype=np.float32))
+        hi, lo = (h.to(torch.float32) for h in split_bf16x3_parts(vals))
         far = 2 * n
         if axis == 0:
             real = rows < n
-            rows = np.concatenate([np.where(real, rows, far), np.where(real, rows + n, far)], -1)
-            cols = np.concatenate([cols, cols], -1)
+            rows = torch.cat([torch.where(real, rows, far), torch.where(real, rows + n, far)], -1)
+            cols = torch.cat([cols, cols], -1)
         else:
             real = cols < n
-            rows = np.concatenate([rows, rows], -1)
-            cols = np.concatenate([np.where(real, cols, far), np.where(real, cols + n, far)], -1)
-        out = rows.astype(np.int32), cols.astype(np.int32), np.concatenate([hi, lo], -1)
+            rows = torch.cat([rows, rows], -1)
+            cols = torch.cat([torch.where(real, cols, far), torch.where(real, cols + n, far)], -1)
+        out = rows.to(torch.int32), cols.to(torch.int32), torch.cat([hi, lo], -1)
         if spans.ACTIVE:
-            span.attrs["entries"] = int(out[2].size)
+            span.attrs["entries"] = out[2].numel()
+        if host:
+            return tuple(a.numpy() for a in out)
+        settle(out[2])
     return out

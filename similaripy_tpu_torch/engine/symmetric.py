@@ -52,14 +52,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.csr import csc_quantized
 from ..parallel import mesh as pmesh
 from . import cache, scatter, spans, sym_topk
 from .params import SPlusParams, build_pvec
 from .preprocess import Preprocessed, _fingerprint
 from .staging import (
     bf16_exact, canonical, compute_cast, last_plan, resolve_compute_dtype, round_up, split_coo,
-    stack_m2_tiles_balanced, upload, vec_by_map,
+    stack_m2_tiles_device, upload, vec_by_map,
 )
 from .sym_sharded import pair_schedule, rank_work, schedule_anatomy
 from .tile_topk import NEG_INF
@@ -204,43 +203,53 @@ def _plan(C: int, U: int, nnz: int, compute_dtype: str, budget: int,
 
 
 # ---------------------------------------------------------------------------
-# Host prep
+# Prep: the item layout on the host, the tile COO stacks on the device
 # ---------------------------------------------------------------------------
 
 
-def prep_coo_symmetric(pre: Preprocessed, compute_dtype: str, tc: int,
-                       n_tiles_dev: int, u_pad: int, split: bool = False):
-    """The O(nnz) prep: the item permutation and the per-tile COO stacks.
-
-    Depends only on matrix2, its quantization and the tile geometry, not
-    on the epilogue vectors, so it is cached apart from them. Returns
-    (coo, item_map): `coo` holds the per-tile users `ru` (sentinel u_pad),
-    slots `sl` and values `vv`, each (n_tiles_dev, p2); with `split` the
-    COO of the tiles' [hi; lo] stacks (users below 2 u_pad, sentinel
-    2 u_pad, each (n_tiles_dev, 2 p2)); `item_map` maps a device slot to
-    its item (C for padding)."""
-    C = pre.n_output_cols
-    int_mode = compute_dtype in ("int8", "int4")
-    m2_csc = csc_quantized(pre.m2, pre.qscale2 if int_mode else None)
-    if split:
-        m2_csc = canonical(m2_csc)
-    col_nnz = np.diff(m2_csc.indptr)
-    # round-robin by nnz rank over ALL device tiles: the product cost is
-    # set by the padded catalog alone, so spreading items into the padding
-    # tiles is free and keeps every tile's COO near the mean
+def item_layout(col_nnz: np.ndarray, n_tiles_dev: int, tc: int):
+    """The one item permutation: (tile_lists, item_map). Items go
+    round-robin by nnz rank over ALL device tiles (the product cost is set
+    by the padded catalog alone, so spreading items into the padding tiles
+    is free and keeps every tile's COO near the mean), then are shuffled
+    within each tile (any bijection is valid), seeded as the JAX package
+    seeds it. `item_map` maps a device slot to its item (C for padding)."""
+    C = col_nnz.shape[0]
     rank = np.argsort(-col_nnz, kind="stable")
-    tile_lists = [rank[t::n_tiles_dev] for t in range(n_tiles_dev)]
-    # shuffle slots within each tile (any bijection is valid), seeded as
-    # the JAX package seeds it
     rng = np.random.default_rng(0x51A7)
-    tile_lists = [lst[rng.permutation(lst.shape[0])] for lst in tile_lists]
+    tile_lists = [lst[rng.permutation(lst.shape[0])]
+                  for lst in (rank[t::n_tiles_dev] for t in range(n_tiles_dev))]
     item_map = np.full(n_tiles_dev * tc, C, dtype=np.int64)
     for t, items in enumerate(tile_lists):
         item_map[t * tc : t * tc + items.shape[0]] = items
-    coo = stack_m2_tiles_balanced(m2_csc, tile_lists, tc, u_pad)
+    return tile_lists, item_map
+
+
+def prep_coo_symmetric(pre: Preprocessed, compute_dtype: str, tc: int,
+                       n_tiles_dev: int, u_pad: int, device: torch.device,
+                       split: bool = False):
+    """The O(nnz) prep: the item permutation and the per-tile COO stacks.
+
+    Depends only on matrix2, its quantization and the tile geometry, not
+    on the epilogue vectors, so it is cached apart from them. The host
+    makes the O(items) layout (``item_layout``); the device builds the
+    stacks from matrix2's uploaded CSC arrays
+    (``staging.stack_m2_tiles_device``), int8 values snapped there, and,
+    with `split`, their split COO. Returns (coo, item_map, bytes uploaded):
+    `coo` holds the per-tile users `ru` (sentinel u_pad), slots `sl` and
+    values `vv` on `device`, each (n_tiles_dev, p2); with `split` the COO
+    of the tiles' [hi; lo] stacks (users below 2 u_pad, sentinel 2 u_pad,
+    each (n_tiles_dev, 2 p2))."""
+    int_mode = compute_dtype in ("int8", "int4")
+    m2_csc = pre.m2.tocsc()
+    if split:
+        m2_csc = canonical(m2_csc)
+    tile_lists, item_map = item_layout(np.diff(m2_csc.indptr), n_tiles_dev, tc)
+    coo, sent = stack_m2_tiles_device(m2_csc, tile_lists, u_pad, device,
+                                      pre.qscale2 if int_mode else None)
     if split:
         coo = split_coo(*coo, u_pad, axis=0)
-    return dict(zip(("ru", "sl", "vv"), coo)), item_map
+    return dict(zip(("ru", "sl", "vv"), coo)), item_map, sent
 
 
 def prep_vecs_symmetric(pre: Preprocessed, item_map: np.ndarray, tc: int,
@@ -262,15 +271,22 @@ def cached_prep_symmetric(pre: Preprocessed, compute_dtype: str, tc: int,
     layouts nested in that entry under their fingerprints, so a sweep of
     different similarities over one matrix re-stacks nothing. Returns
     (device COO, device vectors, item_map). A miss of either level is a
-    ``stage`` span of a traced call (kind "sym_coo" or "sym_vecs")."""
+    ``stage`` span of a traced call (kind "sym_coo" or "sym_vecs"); a
+    "sym_coo" miss, whose stacks the device builds, records the bytes it
+    uploaded (``attrs["upload_bytes"]``) and counts in ``cache_info()``'s
+    ``card_builds``."""
 
     def upload_all(arrays):
         return {name: upload(a, device) for name, a in arrays.items()}
 
     def stage_coo():
-        coo_host, item_map = prep_coo_symmetric(pre, compute_dtype, tc, n_tiles_dev, u_pad,
-                                                split)
-        return upload_all(coo_host), item_map, {}
+        stage = spans.current()
+        coo, item_map, sent = prep_coo_symmetric(pre, compute_dtype, tc, n_tiles_dev, u_pad,
+                                                 device, split)
+        if stage is not None:
+            stage.attrs["upload_bytes"] = sent
+        cache.count_card_build("sym_coo")
+        return coo, item_map, {}
 
     int_mode = compute_dtype in ("int8", "int4")
     coo_key = (
