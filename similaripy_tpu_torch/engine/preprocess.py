@@ -12,8 +12,11 @@ Cython preprocessing (reference: similaripy/cython_code/s_plus_utils.pyx):
   - column selector classification NONE/ARRAY/MATRIX (:311-361) and
     array-mode target column resolution (:364-421)
 
-All vector math is vectorized NumPy (cheap, O(nnz)); the heavy compute
-happens on the device in executor.py. Array-mode column filtering is realized
+Given the call's device, a non-CSR input is coerced there from the caller's
+own arrays, and the int8 gate and the norm and depop sums of that matrix run
+there as torch ops (``ops/card_prep.py``); a CSR input, whose coercion
+copies nothing, keeps the vectorized NumPy path. The heavy compute happens
+on the device in executor.py. Array-mode column filtering is realized
 as a device-side column mask instead of physically dropping matrix2 entries
 (the reference's `_filter_matrix_columns` two-pass drop, :424-490) — masking
 a candidate column is equivalent to removing its entries before top-K and
@@ -30,7 +33,8 @@ import hashlib
 import numpy as np
 import scipy.sparse as sp
 
-from ..ops.csr import csr_col_sums, csr_row_sums, ensure_csr_f32
+from ..ops import card_prep
+from ..ops.csr import csr_col_sums, csr_row_sums, ensure_csr_f32, sparse_bytes
 from . import spans
 
 MODE_NONE = 0
@@ -201,6 +205,10 @@ class Preprocessed:
     # not integerizable) — enables the exact int8 path (executor.py)
     qscale1: Optional[float] = None
     qscale2: Optional[float] = None
+    # the largest magnitude among the values a densify of each matrix holds,
+    # which the gate found (None: not known)
+    qmax1: Optional[float] = None
+    qmax2: Optional[float] = None
     # the call came from matrix2=None, i.e. m2 is exactly m1.T: the
     # symmetric executor keys on it (symmetric.symmetric_eligible)
     self_similar: bool = False
@@ -276,21 +284,24 @@ def preprocess(
     filter_cols=None,
     target_cols=None,
     self_similar: bool = False,
+    device=None,
 ) -> Preprocessed:
-    """Build all device-ready inputs (reference flow: s_plus.pyx:168-346)."""
-    with spans.span("coerce"):
-        m1 = ensure_csr_f32(matrix1)
+    """Build all device-ready inputs (reference flow: s_plus.pyx:168-346).
+
+    With a `device` (a ``torch.device``), a non-CSR input is coerced there
+    and the O(nnz) passes over it run there; its device tensors are
+    dropped before this returns. Without one, every pass runs in NumPy."""
+    m1, dev1 = _coerce(matrix1, device)
     fp1 = _fingerprint(m1.indptr, m1.indices, m1.data)
     if self_similar:
         # matrix2 is exactly m1.T — keep it a zero-copy CSC transpose
         # instead of materializing a second CSR (a full O(nnz) transpose
         # sort per call on big inputs); every executor consumes m2 through
         # csc_quantized/tocsc, which is then free
-        m2 = m1.T
+        m2, dev2 = _transpose(m1, dev1)
         fp2 = fp1 + ":T"
     else:
-        with spans.span("coerce"):
-            m2 = ensure_csr_f32(matrix2)
+        m2, dev2 = _coerce(matrix2, device)
         fp2 = _fingerprint(m2.indptr, m2.indices, m2.data)
 
     # The O(nnz) artifacts (binary transform, norm vectors, quantization
@@ -315,47 +326,46 @@ def preprocess(
             m1 = sp.csr_array(
                 (np.ones_like(m1.data), m1.indices, m1.indptr), shape=m1.shape
             )
+            dev1 = None if dev1 is None else dev1.ones()
             if self_similar:
-                m2 = m1.T
+                m2, dev2 = _transpose(m1, dev1)
             else:
                 m2 = sp.csr_array(
                     (np.ones_like(m2.data), m2.indices, m2.indptr), shape=m2.shape
                 )
+                dev2 = None if dev2 is None else dev2.ones()
 
         Xt = Yt = Xc = Yc = Xd = Yd = None
-        # --- normalization vectors (reference: s_plus.pyx:258-269) ---
-        if l1 != 0.0 or l2 != 0.0:
-            m1_sq = sp.csr_array(
-                (m1.data * m1.data, m1.indices, m1.indptr), shape=m1.shape
-            )
-            m1_sq_norms = csr_row_sums(m1_sq)
-            if self_similar:
-                # column sums of m1.T**2 == row sums of m1**2
-                m2_sq_norms = m1_sq_norms
-            else:
-                m2_sq = sp.csr_array(
-                    (m2.data * m2.data, m2.indices, m2.indptr), shape=m2.shape
-                )
-                m2_sq_norms = csr_col_sums(m2_sq)
-            if l1 != 0.0:
-                Xt, Yt = m1_sq_norms, m2_sq_norms
-            if l2 != 0.0:
-                # additive shrink enters inside the pre-power norms
-                # (reference: s_plus_utils.pyx:226-227)
-                Xc = np.power(m1_sq_norms + additive_shrink, c1, dtype=np.float32)
-                Yc = np.power(m2_sq_norms + additive_shrink, c2, dtype=np.float32)
+        with spans.span("norms"):
+            # --- normalization vectors (reference: s_plus.pyx:258-269) ---
+            if l1 != 0.0 or l2 != 0.0:
+                m1_sq_norms = _sums(m1, dev1, axis=1, square=True)
+                if self_similar:
+                    # column sums of m1.T**2 == row sums of m1**2
+                    m2_sq_norms = m1_sq_norms
+                else:
+                    m2_sq_norms = _sums(m2, dev2, axis=0, square=True)
+                if l1 != 0.0:
+                    Xt, Yt = m1_sq_norms, m2_sq_norms
+                if l2 != 0.0:
+                    # additive shrink enters inside the pre-power norms
+                    # (reference: s_plus_utils.pyx:226-227)
+                    Xc = np.power(m1_sq_norms + additive_shrink, c1, dtype=np.float32)
+                    Yc = np.power(m2_sq_norms + additive_shrink, c2, dtype=np.float32)
 
-        if l3 != 0.0:
-            Xd = _depop_vector(weight_depop_matrix1, p1, m1, axis=1)
-            Yd = _depop_vector(weight_depop_matrix2, p2, m2, axis=0)
+            if l3 != 0.0:
+                Xd = _depop_vector(weight_depop_matrix1, p1, m1, 1, dev1)
+                Yd = _depop_vector(weight_depop_matrix2, p2, m2, 0, dev2)
 
-        qs1 = quantize_scale(int8_values(m1))
-        qs2 = quantize_scale(int8_values(m2))
+        with spans.span("gate"):
+            g1 = _gate(m1, dev1)
+            # m1.T holds m1's values and repeats: the same scale
+            g2 = g1 if self_similar else _gate(m2, dev2)
         if len(_PREP_CACHE) >= _PREP_CACHE_CAP:
             _PREP_CACHE.pop(next(iter(_PREP_CACHE)))
-        _PREP_CACHE[cache_key] = (m1, m2, (Xt, Yt, Xc, Yc, Xd, Yd), (qs1, qs2))
+        _PREP_CACHE[cache_key] = (m1, m2, (Xt, Yt, Xc, Yc, Xd, Yd), (g1, g2))
     else:
-        m1, m2, (Xt, Yt, Xc, Yc, Xd, Yd), (qs1, qs2) = hit
+        m1, m2, (Xt, Yt, Xc, Yc, Xd, Yd), (g1, g2) = hit
 
     n_output_rows, n_output_cols = m1.shape[0], m2.shape[1]
 
@@ -378,7 +388,7 @@ def preprocess(
         n_output_cols=n_output_cols,
     )
     out.Xt, out.Yt, out.Xc, out.Yc, out.Xd, out.Yd = Xt, Yt, Xc, Yc, Xd, Yd
-    out.qscale1, out.qscale2 = qs1, qs2
+    (out.qscale1, out.qmax1), (out.qscale2, out.qmax2) = g1, g2
     out.self_similar = bool(self_similar)
 
     # --- column selectors (reference: s_plus.pyx:284-295) ---
@@ -391,6 +401,57 @@ def preprocess(
         out.target_matrix = target_sel.matrix
 
     return out
+
+
+def _coerce(matrix, device):
+    """(`matrix` as a float32 CSR, its entries on `device` or None): on the
+    device when it takes the input (``card_prep.coerce``), else
+    ``ensure_csr_f32``. A traced call records a ``coerce`` span with
+    ``attrs`` ``where`` ("card" or "host", where the work ran) and
+    ``bytes``, those of the caller's arrays it read."""
+    with spans.span("coerce") as span:
+        got = None if device is None else card_prep.coerce(matrix, device)
+        m, dev = (ensure_csr_f32(matrix), None) if got is None else got
+        if spans.ACTIVE:
+            on_card = dev is not None and dev.data.is_cuda
+            span.attrs.update(where="card" if on_card else "host",
+                              bytes=sparse_bytes(matrix))
+    return m, dev
+
+
+def _transpose(m1, dev1):
+    """(m1.T, a CSC sharing m1's arrays, and its device entries or None).
+    Where the device coerced m1, m1.T is marked canonical or not as m1 is,
+    so SciPy need not look again by a pass over its indices."""
+    m2 = m1.T
+    if dev1 is None:
+        return m2, None
+    m2.has_canonical_format = dev1.canonical
+    return m2, dev1.T
+
+
+def _sums(m, dev, axis: int, square: bool) -> np.ndarray:
+    """Row (axis 1) or column (axis 0) sums of `m`'s values, or of their
+    squares, float32: on the device from `dev` when given, else in NumPy."""
+    if dev is not None:
+        return card_prep.row_sums(dev, square) if axis == 1 else card_prep.col_sums(dev, square)
+    if square:
+        m = type(m)((m.data * m.data, m.indices, m.indptr), shape=m.shape)
+    if axis == 1:
+        return csr_row_sums(m)
+    if isinstance(m, (sp.csc_array, sp.csc_matrix)):
+        # lazy-transpose m2 (self-similarity): column sums of a CSC are
+        # the row sums of its zero-copy CSR transpose
+        return csr_row_sums(m.T)
+    return csr_col_sums(m)
+
+
+def _gate(m, dev) -> tuple[Optional[float], float]:
+    """The int8 gate of `m`, (scale, the largest magnitude it judged): on
+    the device from `dev` when given."""
+    if dev is not None:
+        return card_prep.gate(dev)
+    return _host_gate(int8_values(m))
 
 
 def int8_values(m) -> np.ndarray:
@@ -414,36 +475,41 @@ def quantize_scale(data: np.ndarray) -> Optional[float]:
     Ratings data is typically half-star (s=2) or integer/binary (s=1); count
     data small integers. A hit arms the exact int8 path (executor.py).
     """
+    return _host_gate(data)[0]
+
+
+_GATE_CHUNK = 1 << 20
+
+
+def _host_gate(data: np.ndarray) -> tuple[Optional[float], float]:
+    """(quantize_scale(data), the largest magnitude in `data`), in chunks
+    that stay in the CPU's cache; an integrality check stops at the first
+    chunk that fails it, so float data takes one pass."""
     if data.shape[0] == 0:
-        return 1.0
-    if np.abs(data).max() > 127:
-        return None
-    for s in (1.0, 2.0, 4.0, 8.0):
-        scaled = data * s
-        if np.abs(scaled).max() > 127:
-            return None
+        return 1.0, 0.0
+    chunks = [data[i:i + _GATE_CHUNK] for i in range(0, data.shape[0], _GATE_CHUNK)]
+
+    def integral_at(s):
         # exact integrality required: near-integral data (float noise) must
         # take the float path rather than be silently snapped to integers
-        if (scaled == np.rint(scaled)).all():
-            return s
-    return None
+        for c in chunks:
+            scaled = c * s
+            if not (scaled == np.rint(scaled)).all():
+                return False
+        return True
+
+    amax = float(np.max([np.abs(c).max() for c in chunks]))
+    return card_prep.scale_from(amax, integral_at), amax
 
 
-def _depop_vector(spec, power: float, m: sp.csr_array, axis: int) -> np.ndarray:
+def _depop_vector(spec, power: float, m, axis: int, dev=None) -> np.ndarray:
     """Depop weights: 'none' -> ones, 'sum' -> axis sums ** p, array -> a ** p
-    (reference: s_plus_utils.pyx:253-278)."""
+    (reference: s_plus_utils.pyx:253-278); the sums on the device from
+    `dev` when given."""
     if isinstance(spec, (list, np.ndarray)):
         return np.power(np.asarray(spec), power, dtype=np.float32)
     if spec == "none":
         return np.ones(m.shape[0] if axis == 1 else m.shape[1], dtype=np.float32)
     if spec == "sum":
-        if axis == 1:
-            sums = csr_row_sums(m)
-        elif isinstance(m, (sp.csc_array, sp.csc_matrix)):
-            # lazy-transpose m2 (self-similarity): column sums of a CSC are
-            # the row sums of its zero-copy CSR transpose
-            sums = csr_row_sums(m.T)
-        else:
-            sums = csr_col_sums(m)
-        return np.power(sums, power, dtype=np.float32)
+        return np.power(_sums(m, dev, axis, square=False), power, dtype=np.float32)
     raise ValueError(f"Invalid depop weight spec: {spec}")

@@ -15,7 +15,13 @@ the work itself:
     (ahead of the ``validate`` lap, directly under the root); ``attrs``
     hold the ``nnz`` and the ``bytes`` (values, indices, pointers) of the
     matrices it read;
-  - ``coerce``: each CSR coercion of ``preprocess`` (``ops/csr.py``);
+  - ``coerce``: each CSR coercion of ``preprocess``, on the call's device
+    for a non-CSR input (``ops/card_prep.py``), else on the host
+    (``ops/csr.py``); ``attrs`` hold ``where`` ("card" or "host") and the
+    ``bytes`` of the caller's arrays it read;
+  - ``norms`` and ``gate``: a miss of the preprocess cache, its norm and
+    depop vectors and its int8 gate (once a call: a self-similar call's
+    m1.T takes m1's scale);
   - ``hash``: each content fingerprint (``preprocess._fingerprint``), in
     ``preprocess`` or in an executor's cache key; ``attrs["bytes"]`` is
     what it hashed;

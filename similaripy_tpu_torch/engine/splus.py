@@ -158,6 +158,7 @@ def s_plus(
             filter_cols=filter_cols,
             target_cols=target_cols,
             self_similar=self_similar,
+            device=device,
         )
 
         _lap("execute (wall)")

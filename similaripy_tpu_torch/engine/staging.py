@@ -76,9 +76,8 @@ def resolve_compute_dtype(requested: str, pre: Preprocessed) -> tuple[str, float
     if s1 is None or s2 is None:
         return "float32", 1.0
     m1, m2 = pre.m1, pre.m2
-    # judged on the densified values: repeated entries sum (int8_values)
-    maxv1 = float(np.abs(int8_values(m1)).max()) * s1 if m1.nnz else 0.0
-    maxv2 = float(np.abs(int8_values(m2)).max()) * s2 if m2.nnz else 0.0
+    maxv1 = _max_value(m1, pre.qmax1) * s1
+    maxv2 = _max_value(m2, pre.qmax2) * s2
     max_row_nnz1 = int(np.diff(m1.indptr).max()) if m1.nnz else 0
     if m2.nnz == 0:
         max_col_nnz2 = 0
@@ -90,6 +89,14 @@ def resolve_compute_dtype(requested: str, pre: Preprocessed) -> tuple[str, float
     if maxv1 * maxv2 * max(overlap, 1) >= 2.0**30:
         return "float32", 1.0
     return "int8", 1.0 / (s1 * s2)
+
+
+def _max_value(m, known: Optional[float]) -> float:
+    """The largest magnitude among the densified values of `m` (repeated
+    entries sum: int8_values): `known`, the gate's, when given."""
+    if known is not None:
+        return known
+    return float(np.abs(int8_values(m)).max()) if m.nnz else 0.0
 
 
 _BF16_EXACT_CACHE: dict = {}

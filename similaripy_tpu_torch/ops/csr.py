@@ -32,6 +32,14 @@ def ensure_csr_f32(matrix) -> sp.csr_array:
     return out
 
 
+def sparse_bytes(matrix) -> int:
+    """Bytes of the arrays of a SciPy sparse matrix: values, indices and
+    pointers, or coordinates."""
+    return sum(a.nbytes for a in (getattr(matrix, n, None) for n in
+                                  ("data", "indices", "indptr", "row", "col"))
+               if isinstance(a, np.ndarray))
+
+
 def get_index_dtype(maxval: int):
     """int32 when it fits, else int64 (reference: utils.pyx:28-40)."""
     if maxval <= np.iinfo(np.int32).max:

@@ -32,6 +32,7 @@ from .engine import s_plus as _engine_s_plus
 from .engine import spans as _spans
 from .engine import splus as _splus
 from .normalization import normalize as _normalize
+from .ops.csr import sparse_bytes as _sparse_bytes
 
 
 def __get_shrink_values__(shrink: float, shrink_type: str):
@@ -326,9 +327,7 @@ def _sparse_footprint(matrices) -> dict:
             continue
         if _sp.issparse(m):
             nnz += m.nnz
-            nbytes += sum(a.nbytes for a in (getattr(m, n, None) for n in
-                                             ("data", "indices", "indptr", "row", "col"))
-                          if isinstance(a, np.ndarray))
+            nbytes += _sparse_bytes(m)
         else:
             a = np.asarray(m)
             nnz += int(np.count_nonzero(a))

@@ -119,6 +119,28 @@ def test_one_call_records_one_root_and_nested_children(route):
             assert h.end <= st.start or h.start >= st.end
 
 
+def test_a_self_similar_int8_call_runs_the_gate_once():
+    """The int8 gate of m1 serves m1.T; the gate and the vectors are spans
+    of their own under preprocess, and the coercion says where it ran and
+    what it read."""
+    _traced(_symmetric)
+    (tree,) = _calls().values()
+    by_id = {s.id: s for s in tree}
+    assert executor.last_plan["compute_dtype"] == "int8"
+    for name in ("gate", "norms", "coerce"):
+        (one,) = [s for s in tree if s.name == name]
+        assert by_id[one.parent].name == "preprocess"
+    (coerce,) = [s for s in tree if s.name == "coerce"]
+    # URM.T is a CSC: the call's device (the CPU here) coerces it
+    assert coerce.attrs == {"where": "host",
+                            "bytes": URM.data.nbytes + URM.indices.nbytes + URM.indptr.nbytes}
+    # a hit of the preprocess cache runs neither again
+    _traced(_symmetric)
+    second = _calls()[tree[0].call + 1]
+    assert [s.name for s in second if s.name in ("gate", "norms")] == []
+    assert [s.name for s in second if s.name == "coerce"] == ["coerce"]
+
+
 @pytest.mark.parametrize("route", list(ROUTES))
 def test_last_laps_are_the_lap_spans(route):
     _traced(ROUTES[route])
