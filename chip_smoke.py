@@ -1628,7 +1628,8 @@ def _compact_panel(torch, dev, m_items, targets, plan, dtype, params, **prep):
     cd, inv_scale = staging.resolve_compute_dtype(dtype, pre)
     H, tc, u_pad, cg = plan["H"], plan["tc"], plan["u_pad"], plan["cg"]
     buckets, rank_table = compact.stage_panels(pre, cd, u_pad=u_pad, device=dev,
-                                               densify=scatter.densify_tiles)
+                                               densify=scatter.densify_tiles,
+                                               src=compact.stage_source(pre, dev))
     b = max(buckets, key=lambda b: b["B"])
     (rows, cols, vals, yvecs), _ = compact.stage_tiles(pre, cd, tc=tc, n_tiles=plan["n_tiles"],
                                                        u_pad=u_pad, device=dev)

@@ -6,9 +6,9 @@ matrices (every scoring batch reuses the item matrix), so the executors
 keep their uploads here under full-content fingerprints: a repeated call
 skips the host staging and the upload, and an in-place mutation of an input
 is always seen. A key is a tuple: its kind first ("m2", "m1", "sel" of the
-grouped executor, "sym_coo" of the symmetric one, "compact_m1",
-"compact_m2" of the compaction one), the fingerprint of the matrix it
-stages inside. Every executor goes through ``staged``.
+grouped executor, "sym_coo" of the symmetric one, "compact_src",
+"compact_m1", "compact_m2" of the compaction one), the fingerprint of the
+matrix it stages inside. Every executor goes through ``staged``.
 """
 
 from __future__ import annotations

@@ -19,20 +19,27 @@ rows to
     tiles' candidates into the running top-k of each row.
 
 Panels are target rows dealt round-robin within degree classes
-(``plan_compact``) so per-panel unions stay balanced; panels whose cold
+(``plan_compact_device``) so per-panel unions stay balanced; panels whose cold
 union exceeds the largest bucket run through K3 with the full inner
 dimension (no gather, no bias). Dense tiles are densified by K5
 (``scatter.densify_tiles``). int8 stays exact end to end: the hot partial
 scores stay int32 and join the cold int32 accumulator inside K3 before the
 single inverse-scale multiply.
 
-Both sides stay in the device cache (cache.py). The "compact_m1" entry
-(the plan's panels and the user ranks as a device table) keys on the
-targets. The "compact_m2" entry (matrix2's balanced per-tile COO with the
-user axis in user order, the column map and the column vectors) keys on
-matrix2 and its column vectors alone, so calls on fixed ratings that change
-only their targets stage matrix2 once; each column group's rows are put in
-the call's rank order on the device (``rank_rows``) just before K5.
+Both sides stay in the device cache (cache.py). The "compact_src" entry
+(matrix1's CSR column ids and values) keys on matrix1 alone. The
+"compact_m1" entry (the plan's panels and the user ranks as a device table)
+keys on the targets; a miss is built on the device from "compact_src"
+(``plan_compact_device``: the targets' entries gathered there, the users
+ranked, the panels' cold unions sized and the COO stacks written there,
+with the host making the plan's O(targets) decisions), and counts in
+``cache_info()``'s ``card_builds``. ``plan_compact`` is the same plan in
+NumPy, which the tests hold it to. The "compact_m2" entry (matrix2's
+balanced per-tile COO with the user axis in user order, the column map and
+the column vectors) keys on matrix2 and its column vectors alone, so calls
+on fixed ratings that change only their targets stage matrix2 once; each
+column group's rows are put in the call's rank order on the device
+(``rank_rows``) just before K5.
 
 The JAX package turns this route off on its TPU, whose per-row DMA gather
 ran at ~6 GB/s; on a card a row gather is a plain coalesced copy (K4 moves
@@ -57,12 +64,12 @@ import numpy as np
 import torch
 
 from ..ops.csr import csc_quantized
-from . import cache, gather, panel_topk, scatter
+from . import cache, gather, panel_topk, scatter, spans
 from .params import PVEC_LEN, build_pvec
 from .preprocess import Preprocessed, _fingerprint
 from .staging import (
     balance_columns, column_vectors, compute_cast, last_plan, resolve_compute_dtype, round_up,
-    stack_m2_tiles_balanced, upload,
+    settle, stack_m2_tiles_balanced, upload,
 )
 from .tile_topk import NEG_INF, full_f32_matmul
 
@@ -87,7 +94,8 @@ _CPU_INT8_COLS = 2048
 
 @dataclass
 class BucketPlan:
-    """Panels whose cold unions fit one K bucket."""
+    """Panels whose cold unions fit one K bucket. The arrays are NumPy
+    (plan_compact) or tensors on the call's device (plan_compact_device)."""
 
     B: int  # cold-union bucket width (0 for the dense bucket)
     K: int  # lhs width = H + B, or u_pad for the dense bucket
@@ -106,7 +114,7 @@ class CompactPlan:
     H: int
     u_pad: int
     TM: int
-    rank_of: np.ndarray  # (U,) int64: user id -> device row
+    rank_of: np.ndarray  # (U,) int64: user id -> device row (a tensor on the device's plan)
     buckets: list = field(default_factory=list)  # [BucketPlan...]
 
 
@@ -343,31 +351,191 @@ def _run_bucket_panels(b, d_group, d_hot, yv, pvec_ext, carry, *, flags, k, k_pa
         ci_all[p] = torch.gather(all_i, 1, pos)
 
 
-def stage_panels(pre: Preprocessed, compute_dtype: str, *, u_pad: int, device, densify):
-    """The m1 side of a call on the device: plan_compact's buckets with
-    their dense (n_p, TM, H) hot and (n_p, TM, K - H) cold lhs, gather ids
-    and target vectors, and the user ranks as an int32 table of U + 1
-    entries whose last is the sentinel u_pad (``rank_rows``). Returns
-    (buckets, rank_table)."""
+def stage_source(pre: Preprocessed, device):
+    """matrix1's entries on `device`, the "compact_src" entry: its CSR
+    column ids (int32) and float32 values, which every "compact_m1" miss on
+    this matrix gathers its target rows from. The row pointers stay on the
+    host (``pre.m1.indptr``), where the plan's O(T) decisions read them."""
+    m1 = pre.m1
+    return dict(indices=upload(m1.indices.astype(np.int32, copy=False), device),
+                data=upload(m1.data.astype(np.float32, copy=False), device))
+
+
+def plan_compact_device(src, m1, targets, xt_full, xc_full, xd_full, *, qscale, u_pad: int,
+                        TM: int, H: int, uc_buckets: tuple, device):
+    """plan_compact's plan, built on `device` from matrix1's entries there
+    (`src`, stage_source's; `m1` the host CSR they came from): equal to
+    plan_compact's on the target slice of `m1`, its values snapped to
+    rint(v * qscale) when `qscale` is given, element for element, with the
+    stacks, gather ids, target vectors and ranks as tensors on `device`.
+
+    The device gathers the target rows' entries, ranks the users and sizes
+    the panels' cold unions by one unique of (panel, rank) keys a pass; the
+    host gets those sizes alone and makes plan_compact's O(T) decisions
+    (degree order, classes, round-robin dealing, promotion). The device
+    then writes every panel's entries where plan_compact puts them, in
+    compact columns from the panel's sorted cold union. Only O(T) vectors
+    go up. Returns (plan, the bytes uploaded)."""
+    sent = 0
+
+    def dev(a):
+        nonlocal sent
+        sent += a.nbytes
+        return upload(a, device)
+
+    T, U = targets.shape[0], m1.shape[1]
+    indptr = m1.indptr.astype(np.int64, copy=False)
+    starts = indptr[targets]
+    deg = indptr[targets.astype(np.int64) + 1] - starts
+    first = np.cumsum(deg) - deg
+    n = int(deg.sum())
+    at = torch.arange(n, device=device)
+    owner = torch.repeat_interleave(dev(deg), output_size=n)  # each entry's target position
+    src_pos = dev(starts - first).index_select(0, owner) + at
+    users = src["indices"].index_select(0, src_pos).to(torch.int64)
+    vals = src["data"].index_select(0, src_pos)
+    if qscale is not None:
+        vals = torch.round(vals * qscale)
+    del src_pos
+
+    # users ranked by how many target rows touch them, ties in id order
+    # (np.argsort(-touch, kind="stable"))
+    order = torch.sort(-torch.bincount(users, minlength=U), stable=True).indices
+    rank_of = torch.empty(U, dtype=torch.int64, device=device)
+    rank_of[order] = torch.arange(U, device=device)
+    ranked = rank_of.index_select(0, users)
+    del users, order
+    cold = ranked >= H
+    cold_owner, cold_rank = owner[cold], ranked[cold]
+
+    def union_sizes(panels):
+        """The cold-union size of each panel (rows: target positions)."""
+        label = np.full(T, -1, dtype=np.int64)
+        for i, rows in enumerate(panels):
+            label[rows] = i
+        lab = dev(label).index_select(0, cold_owner)
+        keep = lab >= 0
+        keys = torch.unique(lab[keep] * u_pad + cold_rank[keep])
+        return torch.bincount(keys // u_pad, minlength=len(panels)).cpu().numpy()
+
+    # --- provisional contiguous panels in degree order -> class sizing ---
+    item_order = np.argsort(-deg, kind="stable")
+    prov = [item_order[p * TM: (p + 1) * TM] for p in range(math.ceil(T / TM))]
+    classes = list(uc_buckets) + [None]  # None = dense class
+    class_items: dict = {c: [] for c in classes}
+    for rows, uc in zip(prov, union_sizes(prov)):
+        class_items[next((c for c in uc_buckets if uc <= c), None)].append(rows)
+
+    # --- deal within class, verify, promote overflows ---
+    kept: list = []
+    carry_over: list = []
+    for c in classes:
+        items = class_items[c] + carry_over
+        carry_over = []
+        if not items:
+            continue
+        pool = np.concatenate(items)
+        n_p = math.ceil(pool.shape[0] / TM)
+        panels = [pool[i::n_p] for i in range(n_p)]
+        if c is not None:
+            sizes = union_sizes(panels)
+            carry_over = [rows for rows, s in zip(panels, sizes) if s > c]
+            panels = [rows for rows, s in zip(panels, sizes) if s <= c]
+        if panels:
+            kept.append((c, panels))
+
+    # --- where each target position's entries land in the flat stacks of
+    # all buckets, and where each gathering panel's gather ids start ---
+    n_panels = sum(len(panels) for _, panels in kept)
+    dest = np.zeros(T, dtype=np.int64)
+    row_in = np.zeros(T, dtype=np.int32)
+    panel_of = np.full(T, -1, dtype=np.int64)  # -1: a dense panel's row
+    gi_first = np.zeros(n_panels, dtype=np.int64)
+    geometry = []
+    stack_end = gi_end = g = 0
+    for c, panels in kept:
+        B = int(c) if c is not None else 0
+        p1 = 1 << max(int(np.ceil(np.log2(max(max(int(deg[r].sum()) for r in panels), 1)))), 8)
+        for pi, rows in enumerate(panels):
+            d = deg[rows]
+            dest[rows] = stack_end + pi * p1 + np.cumsum(d) - d
+            row_in[rows] = np.arange(rows.shape[0])
+            if c is not None:
+                panel_of[rows] = g
+                gi_first[g] = gi_end + pi * B
+            g += 1
+        geometry.append((B, p1, stack_end, gi_end))
+        stack_end += len(panels) * p1
+        gi_end += len(panels) * B
+
+    put = dev(dest - first).index_select(0, owner) + at
+    pr = torch.full((stack_end,), TM, dtype=torch.int32, device=device)  # TM = dropped
+    pr.index_copy_(0, put, dev(row_in).index_select(0, owner))
+    pv = torch.zeros(stack_end, dtype=torch.float32, device=device)
+    pv.index_copy_(0, put, vals)
+    # compact col: the rank if hot, else H + its place in the panel's union
+    gp = dev(panel_of).index_select(0, owner)
+    sel = cold & (gp >= 0)
+    gp = gp[sel]
+    keys, inv = torch.unique(gp * u_pad + ranked[sel], return_inverse=True)
+    key_panel = keys // u_pad
+    size = torch.bincount(key_panel, minlength=n_panels)
+    union_first = torch.cumsum(size, 0) - size
+    ranked[sel] = H + inv - union_first.index_select(0, gp)
+    pc = torch.zeros(stack_end, dtype=torch.int32, device=device)
+    pc.index_copy_(0, put, ranked.to(torch.int32))
+    gi = torch.zeros(gi_end, dtype=torch.int32, device=device)
+    slot = (dev(gi_first) - union_first).index_select(0, key_panel)
+    slot += torch.arange(keys.shape[0], device=device)
+    gi.index_copy_(0, slot, (keys % u_pad).to(torch.int32))
+
+    plan = CompactPlan(H=H, u_pad=u_pad, TM=TM, rank_of=rank_of)
+    for (c, panels), (B, p1, s0, g0) in zip(kept, geometry):
+        n_p = len(panels)
+        sx = np.ones((3, n_p, TM), dtype=np.float32)
+        for pi, rows in enumerate(panels):
+            for v, full in zip(sx, (xt_full, xc_full, xd_full)):
+                if full is not None:
+                    v[pi, : rows.shape[0]] = full[targets[rows]]
+        sx_t, sx_c, sx_d = dev(sx)
+        pr_b, pc_b, pv_b = (a[s0: s0 + n_p * p1].view(n_p, p1) for a in (pr, pc, pv))
+        plan.buckets.append(BucketPlan(
+            B=B, K=H + B if c is not None else u_pad, panel_rows=[np.asarray(r) for r in panels],
+            pr=pr_b, pc=pc_b, pv=pv_b,
+            gather_idx=gi[g0: g0 + n_p * B].view(n_p, B) if c is not None else None,
+            sx_t=sx_t, sx_c=sx_c, sx_d=sx_d,
+        ))
+    return plan, sent
+
+
+def stage_panels(pre: Preprocessed, compute_dtype: str, *, u_pad: int, device, densify, src):
+    """The m1 side of a call on the device: plan_compact_device's buckets
+    with their dense (n_p, TM, H) hot and (n_p, TM, K - H) cold lhs, gather
+    ids and target vectors, and the user ranks as an int32 table of U + 1
+    entries whose last is the sentinel u_pad (``rank_rows``), from `src`,
+    matrix1's entries on the device (stage_source's). A traced call's open
+    ``stage`` span records the bytes uploaded (``attrs["upload_bytes"]``).
+    Returns (buckets, rank_table)."""
+    stage = spans.current()
     int8_mode = compute_dtype in ("int8", "int4")
     H = _hot_height(u_pad)
-    dev = functools.partial(upload, device=device)
-    m1_t = pre.m1[pre.targets]
-    if int8_mode:
-        m1_t.data = np.rint(m1_t.data * pre.qscale1).astype(np.float32)
-    plan = plan_compact(m1_t, pre.targets, pre.Xt, pre.Xc, pre.Xd, u_pad=u_pad, TM=TM,
-                        H=H, uc_buckets=cold_buckets(H, u_pad))
+    plan, sent = plan_compact_device(
+        src, pre.m1, pre.targets, pre.Xt, pre.Xc, pre.Xd,
+        qscale=pre.qscale1 if int8_mode else None, u_pad=u_pad, TM=TM, H=H,
+        uc_buckets=cold_buckets(H, u_pad), device=device)
     buckets = []
     for b in plan.buckets:
-        hot, cold = _scatter_lhs(dev(b.pr), dev(b.pc), dev(b.pv), K=b.K, H=H, dense=b.B == 0,
+        hot, cold = _scatter_lhs(b.pr, b.pc, b.pv, K=b.K, H=H, dense=b.B == 0,
                                  cdt=compute_cast(compute_dtype), densify=densify)
         buckets.append(dict(
-            B=b.B, K=b.K, panel_rows=b.panel_rows, hot=hot, cold=cold,
-            gi=None if b.gather_idx is None else dev(b.gather_idx),
-            sx_t=dev(b.sx_t), sx_c=dev(b.sx_c), sx_d=dev(b.sx_d),
+            B=b.B, K=b.K, panel_rows=b.panel_rows, hot=hot, cold=cold, gi=b.gather_idx,
+            sx_t=b.sx_t, sx_c=b.sx_c, sx_d=b.sx_d,
         ))
-    rank_table = np.append(plan.rank_of, u_pad).astype(np.int32)
-    return buckets, dev(rank_table)
+    rank_table = torch.cat([plan.rank_of, plan.rank_of.new_tensor([u_pad])]).to(torch.int32)
+    if stage is not None:
+        stage.attrs["upload_bytes"] = sent
+    settle(rank_table)
+    return buckets, rank_table
 
 
 def rank_rows(rows, rank_table):
@@ -431,20 +599,27 @@ def execute_compact(
     tc = min(tc, round_up(C, 128))
     k_pad = round_up(min(k, tc), 8)
 
-    # ---- m1 side: plan + device lhs stacks (cached across calls) ----
+    # ---- m1 side: matrix1's entries (cached across calls on it), then
+    # the plan and the device lhs stacks built from them (cached on the
+    # targets) ----
+    src = cache.staged(("compact_src", pre.fp1, str(device)), pre.fp1,
+                       lambda: stage_source(pre, device))
     m1_key = (
         "compact_m1", pre.fp1, _fingerprint(targets, pre.Xt, pre.Xc, pre.Xd),
         compute_dtype, TM, H, cold_buckets(H, u_pad), str(device),
     )
-    dev_buckets, rank_table = cache.staged(
-        m1_key, pre.fp1,
-        lambda: stage_panels(pre, compute_dtype, u_pad=u_pad, device=device, densify=densify),
-    )
+
+    def stage_m1():
+        cache.count_card_build("compact_m1")
+        return stage_panels(pre, compute_dtype, u_pad=u_pad, device=device, densify=densify,
+                            src=src)
+
+    dev_buckets, rank_table = cache.staged(m1_key, pre.fp1, stage_m1)
 
     # ---- group sizing under the device budget (compact.py:541) ----
     b2 = max((b["B"] for b in dev_buckets), default=0)
     misc = (
-        cache.device_bytes((dev_buckets, rank_table))
+        cache.device_bytes((src, dev_buckets, rank_table))
         + int(m2.nnz * 12 * 1.8)  # staged COO uploads
         + int(m2.nnz * 4 * 1.8)  # a group's ranked rows (G x p2 x 4), at most the whole stack
         + cache.foreign_cache_bytes((pre.fp1, pre.fp2))

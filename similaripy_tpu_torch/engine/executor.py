@@ -837,12 +837,14 @@ def cache_info() -> dict:
     {"entries", "device_bytes", "host_bytes"}}, "hits": {kind: n},
     "misses": {kind: n}, "card_builds": {kind: n}, "prep_entries",
     "prep_hits", "prep_misses", "oom_retries"}`` where ``kind`` is the
-    key's tag ("m2", "m1", "sel", "sym_coo", "compact_m1", "compact_m2";
-    "compact_m2" keys on matrix2 and its column vectors only, so calls on
-    fixed ratings that change their targets hit it), ``hits`` and
-    ``misses`` count the device cache's lookups, ``card_builds`` the
-    misses whose entry the device built from matrix2's uploaded CSC
-    arrays ("sym_coo"), ``prep_entries`` the host preprocess cache,
+    key's tag ("m2", "m1", "sel", "sym_coo", "compact_src", "compact_m1",
+    "compact_m2"; "compact_src" and "compact_m2" key on matrix1 and on
+    matrix2 and its column vectors only, so calls on fixed ratings that
+    change their targets hit them), ``hits`` and ``misses`` count the
+    device cache's lookups, ``card_builds`` the misses whose entry the
+    device built from uploaded source arrays ("sym_coo" from matrix2's
+    CSC, "compact_m1" from "compact_src"), ``prep_entries`` the host
+    preprocess cache,
     ``prep_hits`` and ``prep_misses`` its lookups, and ``oom_retries`` the
     calls that ran out of device memory and were replanned."""
     prep = prep_cache_counts()

@@ -123,7 +123,8 @@ def test_device_ranking_equals_the_host_remap(dtype):
     H = compact._hot_height(u_pad)
     cpu = torch.device("cpu")
     _buckets, table = compact.stage_panels(pre, dtype, u_pad=u_pad, device=cpu,
-                                           densify=scatter.densify_tiles_plain)
+                                           densify=scatter.densify_tiles_plain,
+                                           src=compact.stage_source(pre, cpu))
     m1_t = pre.m1[pre.targets]
     plan = compact.plan_compact(m1_t, pre.targets, None, None, None, u_pad=u_pad,
                                 TM=compact.TM, H=H, uc_buckets=compact.cold_buckets(H, u_pad))
@@ -153,17 +154,29 @@ def test_device_ranking_equals_the_host_remap(dtype):
 
 def test_a_second_refresh_stages_the_panels_only():
     """With the span log on, a second call on the same ratings with other
-    targets records stage spans of kind compact_m1 only."""
+    targets records stage spans of kind compact_m1 only: matrix1's entries
+    on the device (compact_src) and matrix2's tiles hit, and each call's
+    panels are one card build, which uploads O(targets) vectors alone."""
     splus.TIMING = True
+    builds = []
     try:
-        _call(ITEMS, FIRST, "int8")
-        _call(ITEMS, SECOND, "int8")
+        for targets in (FIRST, SECOND):
+            _call(ITEMS, targets, "int8")
+            builds.append(tsim.cache_info()["card_builds"].get("compact_m1", 0))
     finally:
         splus.TIMING = False
     calls: dict = {}
     for s in spans.log():
         calls.setdefault(s.call, []).append(s)
     first, second = calls.values()
-    kinds = [[s.attrs["kind"] for s in tree if s.name == "stage"] for tree in (first, second)]
-    assert sorted(kinds[0]) == ["compact_m1", "compact_m2"]
+    stages = [[s for s in tree if s.name == "stage"] for tree in (first, second)]
+    kinds = [[s.attrs["kind"] for s in tree] for tree in stages]
+    assert sorted(kinds[0]) == ["compact_m1", "compact_m2", "compact_src"]
     assert kinds[1] == ["compact_m1"]
+    info = tsim.cache_info()
+    assert info["misses"]["compact_src"] == 1 and info["hits"]["compact_src"] == 1
+    assert builds == [1, 2]
+    (src,) = [s for s in stages[0] if s.attrs["kind"] == "compact_src"]
+    assert src.attrs["bytes"] == ITEMS.nnz * 8
+    panels = stages[1][0]
+    assert 0 < panels.attrs["upload_bytes"] < ITEMS.nnz * 8

@@ -111,7 +111,8 @@ def test_one_call_records_one_root_and_nested_children(route):
     stages = [s for s in tree if s.name == "stage"]
     assert stages and all(s.attrs["bytes"] + s.attrs["host_bytes"] > 0 for s in stages)
     kinds = {s.attrs["kind"] for s in stages}
-    assert kinds == {"symmetric": {"sym_coo", "sym_vecs"}, "compact": {"compact_m1", "compact_m2"},
+    assert kinds == {"symmetric": {"sym_coo", "sym_vecs"},
+                     "compact": {"compact_src", "compact_m1", "compact_m2"},
                      "general": {"m1", "m2", "sel"}}[route]
     # a hash never lies inside a stage
     for st in stages:
