@@ -669,20 +669,27 @@ def execute_compact(
     for g in range(n_groups):
         t0, t1 = g * G, (g + 1) * G
         d_group = d_hot = None  # release the previous group before the next lands
-        d_group = _build_d_group(rank_rows(t_rows[t0:t1], rank_table), t_cols[t0:t1],
-                                 t_vals[t0:t1], u_pad=u_pad, tc=tc, cdt=cdt, densify=densify)
-        if any(b["B"] != 0 for b in dev_buckets):
-            d_hot = d_group[:H]
-            if compute_dtype == "bfloat16":
-                d_hot = d_hot.to(torch.float32)  # the bias is an f32 product
-        yv = {name: v[t0 * tc:t1 * tc] for name, v in yvecs.items()}
-        pvec_ext = torch.cat([pvec, pvec.new_tensor([t0 * tc]), pvec.new_zeros(PVEC_LEN - 11)])
-        for bi, b in enumerate(dev_buckets):
-            _run_bucket_panels(
-                b, d_group, d_hot, yv, pvec_ext, carries[bi], flags=flags, k=k,
-                k_pad=k_pad, tc=tc, int8_mode=int8_mode, panel_fn=panel_fn,
-                gather_fn=gather_fn,
-            )
+        with spans.span("group") as group:
+            d_group = _build_d_group(rank_rows(t_rows[t0:t1], rank_table), t_cols[t0:t1],
+                                     t_vals[t0:t1], u_pad=u_pad, tc=tc, cdt=cdt,
+                                     densify=densify)
+            if any(b["B"] != 0 for b in dev_buckets):
+                d_hot = d_group[:H]
+                if compute_dtype == "bfloat16":
+                    d_hot = d_hot.to(torch.float32)  # the bias is an f32 product
+            yv = {name: v[t0 * tc:t1 * tc] for name, v in yvecs.items()}
+            pvec_ext = torch.cat([pvec, pvec.new_tensor([t0 * tc]),
+                                  pvec.new_zeros(PVEC_LEN - 11)])
+            for bi, b in enumerate(dev_buckets):
+                _run_bucket_panels(
+                    b, d_group, d_hot, yv, pvec_ext, carries[bi], flags=flags, k=k,
+                    k_pad=k_pad, tc=tc, int8_mode=int8_mode, panel_fn=panel_fn,
+                    gather_fn=gather_fn,
+                )
+            if spans.ACTIVE:
+                group.attrs.update(index=g, cols=cg, table_bytes=d_group.nbytes,
+                                   panels=sum(len(b["panel_rows"]) for b in dev_buckets))
+                settle(d_group)
         if progress is not None:
             step = T - done_items if g == n_groups - 1 else T // n_groups
             done_items += step

@@ -1,10 +1,14 @@
 """Call-scoped span log of the port's host path, switched by ``splus.TIMING``.
 
-With ``splus.TIMING`` on, every call opens a root span ``call`` (its
-``attrs`` hold the route, ``executor.last_route``, the number of target
-rows, and K2's launches of the call: ``k2`` by product kernel and
-``k2_asym``, those that carry the asymmetric column side) whose call id
-rises by one each call. ``s_plus`` opens it, or, for a public function
+With ``splus.TIMING`` on, every call opens a root span ``call`` whose call
+id rises by one each call. Its ``attrs`` hold the route
+(``executor.last_route``), the number of target rows (``targets``), and
+the call's launches: ``k2``, K2's by product kernel, and ``k2_asym``,
+those that carry the asymmetric column side; ``k3``, K3's by product
+kernel, its plain calls under ``"plain"``; ``groups``, the column groups
+of a compaction call (0 on another route); and ``epilogue``, the terms of
+the S-Plus epilogue the call ran, of ``l1``, ``l2``, ``l3``, ``pow`` and
+``bayes``. ``s_plus`` opens it, or, for a public function
 that works on the host before it calls ``s_plus`` (p3alpha, rp3beta), that
 function does, and ``s_plus`` then opens no second root. Under it run the
 four laps ``validate``, ``preprocess``, ``execute (wall)`` and ``assembly``
@@ -35,7 +39,13 @@ the work itself:
     ``stage``;
   - ``split``: the split-bf16x3 COO of a ``precision='high'`` call
     (``staging.split_coo``), inside the ``stage`` that makes it;
-    ``attrs["entries"]`` is the entries it gives out.
+    ``attrs["entries"]`` is the entries it gives out;
+  - ``group``: one column group of a compaction call (``compact.py``), in
+    ``execute (wall)``: its dense table (K5), and each panel's gather
+    (K4), hot-prefix product and K3 launch; it ends once the card has
+    done the group's work. ``attrs`` hold the group's ``index``, its
+    ``cols``, the ``table_bytes`` of its dense table and the ``panels``
+    (K3 launches) it ran.
 
 A span's ``start`` and ``end`` are ``time.perf_counter()`` readings, the
 clock the benchmark puts device intervals on. While ``torch.profiler`` is

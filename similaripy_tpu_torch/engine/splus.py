@@ -35,7 +35,7 @@ from typing import Optional
 
 from ..utils.device import resolve_device
 from ..utils.progress import ProgressBar
-from . import executor, spans, sym_topk
+from . import executor, panel_topk, spans, sym_topk
 from .assembly import assemble
 from .executor import execute
 from .params import SPlusParams
@@ -50,16 +50,31 @@ TIMING = False
 last_laps: dict = {}
 
 
-def _k2_counts() -> tuple:
-    return dict(sym_topk.product_launches), sym_topk.asym_launches
+# the epilogue terms of SPlusParams.static_flags() a root span names
+_EPILOGUE_TERMS = ("l1", "l2", "l3", "pow", "bayes")
 
 
-def _k2_launches(before: tuple) -> dict:
-    """The root span's K2 attrs: the call's launches by product kernel (those
-    it ran) and those that carried the asymmetric column side."""
-    (by_kernel, asym), (by_kernel0, asym0) = _k2_counts(), before
-    ran = {name: n - by_kernel0[name] for name, n in by_kernel.items() if n > by_kernel0[name]}
-    return {"k2": ran, "k2_asym": asym - asym0}
+def _launch_counts() -> tuple:
+    """K2's launches by product kernel and its asymmetric ones, K3's by
+    product kernel with its plain calls under "plain"."""
+    k3 = dict(panel_topk.product_launches, plain=panel_topk.plain_calls)
+    return dict(sym_topk.product_launches), sym_topk.asym_launches, k3
+
+
+def _ran(counts: dict, before: dict) -> dict:
+    return {name: n - before[name] for name, n in counts.items() if n > before[name]}
+
+
+def _call_attrs(before: tuple, params: SPlusParams) -> dict:
+    """The root span's attrs after execute: K2's launches by product kernel
+    (those it ran) and those that carried the asymmetric column side, K3's
+    launches likewise, the column groups of a compaction call (0 on another
+    route) and the epilogue terms the call ran."""
+    (k2, asym, k3), (k2_0, asym0, k3_0) = _launch_counts(), before
+    compact = executor.last_route == "compact"
+    return {"k2": _ran(k2, k2_0), "k2_asym": asym - asym0, "k3": _ran(k3, k3_0),
+            "groups": executor.last_plan["n_groups"] if compact else 0,
+            "epilogue": [t for t, on in zip(_EPILOGUE_TERMS, params.static_flags()) if on]}
 
 
 def _lap(name) -> None:
@@ -115,7 +130,7 @@ def s_plus(
     timing = TIMING
     if timing:
         last_laps.clear()
-        k2_before = _k2_counts()
+        counts_before = _launch_counts()
     # a public function that transformed the inputs has opened the root
     with spans.call(timing):
         _lap("validate")
@@ -187,7 +202,7 @@ def s_plus(
         )
         if timing:
             spans.root().attrs.update(route=executor.last_route, targets=n_targets,
-                                      **_k2_launches(k2_before))
+                                      **_call_attrs(counts_before, params))
 
         progress.set_description(f"Building {format_output} matrix")
         _lap("assembly")

@@ -16,37 +16,18 @@ the configuration's, the operands rounded to TF32, errs by some 5e-4; the
 limits lie between (PERF.md, the cell's calibration), and a TF32 run must
 fail them."""
 
-import importlib.util
-import json
-import sys
-from pathlib import Path
-
 import numpy as np
 import pytest
 import scipy.sparse as sp
 
 import similaripy_tpu_torch as tsim
+from perfbench_parts import COMPARE, limits, reference
 from similaripy_tpu_torch.engine import executor
 
-BENCH = Path(__file__).resolve().parent.parent / "perfbench"
 CELL = "ml32m-rp3beta-high.full-build"
 CPU = dict(device="cpu", verbose=False)
-
-
-def _load(name: str, path: Path, package: bool = False):
-    spec = importlib.util.spec_from_file_location(
-        name, path, submodule_search_locations=[str(path.parent)] if package else None)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-# the reference imports its package by the name "reference"
-if "reference" not in sys.modules:
-    sys.modules["reference"] = _load("reference", BENCH / "reference" / "__init__.py", True)
-ITEM_RP3BETA = _load("pb_reference_item_rp3beta", BENCH / "reference" / "item_rp3beta.py")
-COMPARE = _load("pb_compare", BENCH / "pbcore" / "compare.py")
-LIMITS = json.loads((BENCH / "workloads" / f"{CELL}.json").read_text())["limits"]
+ITEM_RP3BETA = reference("item_rp3beta")
+LIMITS = limits(CELL)
 
 
 def _ratings(users=600, items=300, seed=0):
