@@ -15,10 +15,13 @@ four laps ``validate``, ``preprocess``, ``execute (wall)`` and ``assembly``
 (``splus.last_laps`` is filled from them), and inside those the spans of
 the work itself:
 
-  - ``transform``: the public function's host work before ``s_plus``
-    (ahead of the ``validate`` lap, directly under the root); ``attrs``
-    hold the ``nnz`` and the ``bytes`` (values, indices, pointers) of the
-    matrices it read;
+  - ``transform``: the public function's work before ``s_plus`` (ahead
+    of the ``validate`` lap, directly under the root), on the call's
+    device for the value-symmetric P3 transform when the device takes the
+    input (``ops/card_p3.py``), else on the host; ``attrs`` hold the
+    ``nnz`` and the ``bytes`` (values, indices, pointers) of the matrices
+    it read, ``where`` ("card" or "host") and ``upload_bytes``, what went
+    up to the device (0 on the host path);
   - ``coerce``: each CSR coercion of ``preprocess``, on the call's device
     for a non-CSR input (``ops/card_prep.py``), else on the host
     (``ops/csr.py``); ``attrs`` hold ``where`` ("card" or "host") and the

@@ -5,7 +5,9 @@ device as the caller's own arrays and is put in CSR order there
 (``coerce``); the int8 gate (``gate``) and the squared-norm and
 depop sums (``row_sums``, ``col_sums``) then run as reductions over those
 device tensors, and only the coerced CSR and the O(rows) vectors come
-back. One implementation serves a card and the CPU.
+back. One implementation serves a card and the CPU. The CSR ordering of
+the uploaded entries (``csr_entries``) also serves the P3 transform
+(``ops/card_p3.py``).
 
 Each pass gives what the host path gives (``ops/csr.py::ensure_csr_f32``,
 ``engine/preprocess.py``):
@@ -86,17 +88,94 @@ def _to_host(*tensors) -> list:
 def _takes(matrix) -> bool:
     """Whether ``coerce`` handles `matrix`: a 2-D CSC or COO with entries,
     values torch holds and native int32/int64 indices."""
+    return getattr(matrix, "format", None) in ("csc", "coo") and takes_entries(matrix)
+
+
+def takes_entries(matrix) -> bool:
+    """Whether ``csr_entries`` handles `matrix`: a 2-D CSC, CSR or COO with
+    entries, values torch holds and native int32/int64 indices."""
     fmt = getattr(matrix, "format", None)
-    if fmt not in ("csc", "coo") or matrix.ndim != 2 or matrix.nnz == 0:
+    if fmt not in ("csc", "csr", "coo") or matrix.ndim != 2 or matrix.nnz == 0:
         return False
     return (matrix.data.dtype in _VALUE_DTYPES
             and all(a.dtype in _INDEX_DTYPES for a in _index_arrays(matrix)))
 
 
 def _index_arrays(matrix) -> tuple:
-    if matrix.format == "csc":
+    if matrix.format in ("csc", "csr"):
         return matrix.indptr, matrix.indices
     return matrix.row, matrix.col
+
+
+def index_dtype(matrix) -> torch.dtype:
+    """The index dtype of SciPy's tocsr of `matrix`, which ensure_csr_f32's
+    constructor then judges as it judges this one's."""
+    wide = (any(a.dtype == np.int64 for a in _index_arrays(matrix))
+            or max(matrix.nnz, matrix.shape[1]) > _INT32_MAX)
+    return torch.int64 if wide else torch.int32
+
+
+def _key_order(rows: torch.Tensor, cols: torch.Tensor, n_cols: int):
+    """(the stable order of the entries by (row, col), the sorted keys)."""
+    key = rows.long() * n_cols + cols.long()
+    order = torch.argsort(key, stable=True)
+    return order, key[order]
+
+
+def repeats(rows: torch.Tensor, cols: torch.Tensor) -> bool:
+    """Whether entries in CSR order repeat a (row, col)."""
+    return bool(((rows[1:] == rows[:-1]) & (cols[1:] == cols[:-1])).any())
+
+
+def csr_entries(matrix, device) -> Optional[tuple]:
+    """The entries of a CSC, CSR or COO `matrix` (``takes_entries``),
+    uploaded to `device` from the caller's own arrays and put in SciPy's
+    CSR order: (rows, cols, values in the caller's dtype, the bytes
+    uploaded); None for a COO whose (row, col) pairs repeat (SciPy sums
+    those) and for a matrix too large to key by (row, col) where it has to.
+
+    A CSC's repeated entries keep their order, as SciPy's tocsr keeps them;
+    a CSR keeps its entries as they are unless a row's columns are out of
+    order, when a stable sort by (row, col) puts them in order. On the CPU
+    the tensors of a CSR taken as it is share the caller's arrays: the
+    caller's arrays are never written, so neither may the tensors be."""
+    n_rows, n_cols = matrix.shape
+    if matrix.format == "coo":
+        if n_rows * n_cols > 1 << 62:
+            return None
+        host = (matrix.row, matrix.col, matrix.data)
+        rows, cols, vals = (_upload(a, device) for a in host)
+        order, key = _key_order(rows, cols, n_cols)
+        if bool((key[1:] == key[:-1]).any()):
+            return None  # SciPy sums the repeats of a COO: the host does it
+        del key
+    else:
+        nnz = int(matrix.indptr[-1])
+        host = (matrix.indptr, matrix.indices[:nnz], matrix.data[:nnz])
+        ptr, minor, vals = (_upload(a, device) for a in host)
+        major = torch.repeat_interleave(
+            torch.arange(ptr.shape[0] - 1, device=device, dtype=minor.dtype), ptr.diff(),
+            output_size=nnz)
+        del ptr
+        if matrix.format == "csc":
+            rows, cols = minor, major
+            # a stable sort by row keeps each row's entries in column order and
+            # a column's repeats in their order, as SciPy's tocsr does
+            order = torch.argsort(rows, stable=True)
+        else:
+            rows, cols = major, minor
+            order = None
+            if bool(((rows[1:] == rows[:-1]) & (cols[1:] < cols[:-1])).any()):
+                if n_rows * n_cols > 1 << 62:
+                    return None
+                order, _ = _key_order(rows, cols, n_cols)
+        del minor, major
+    if order is not None:  # one at a time, each copy freed as it is replaced
+        rows = rows[order]
+        cols = cols[order]
+        vals = vals[order]
+        del order
+    return rows, cols, vals, sum(int(a.nbytes) for a in host)
 
 
 def coerce(matrix, device) -> Optional[tuple[sp.csr_array, DeviceCSR]]:
@@ -108,42 +187,20 @@ def coerce(matrix, device) -> Optional[tuple[sp.csr_array, DeviceCSR]]:
     The caller's arrays are read, never written."""
     if not _takes(matrix):
         return None
+    got = csr_entries(matrix, device)
+    if got is None:
+        return None
+    rows, cols, vals, _ = got
     n_rows, n_cols = matrix.shape
-    # the index dtype of SciPy's tocsr, which ensure_csr_f32's constructor
-    # then judges as it judges this one's
-    wide = (any(a.dtype == np.int64 for a in _index_arrays(matrix))
-            or max(matrix.nnz, n_cols) > _INT32_MAX)
-    idx = torch.int64 if wide else torch.int32
-    if matrix.format == "csc":
-        nnz = int(matrix.indptr[-1])
-        ptr = _upload(matrix.indptr, device)
-        rows = _upload(matrix.indices[:nnz], device)
-        vals = _upload(matrix.data[:nnz], device)
-        cols = torch.repeat_interleave(
-            torch.arange(n_cols, device=device, dtype=rows.dtype), ptr.diff(), output_size=nnz)
-        # a stable sort by row keeps each row's entries in column order and
-        # a column's repeats in their order, as SciPy's tocsr does
-        order = torch.argsort(rows, stable=True)
-    else:
-        if n_rows * n_cols > 1 << 62:
-            return None
-        rows, cols = _upload(matrix.row, device), _upload(matrix.col, device)
-        vals = _upload(matrix.data, device)
-        key = rows.long() * n_cols + cols.long()
-        order = torch.argsort(key, stable=True)
-        key = key[order]
-        if bool((key[1:] == key[:-1]).any()):
-            return None  # SciPy sums the repeats of a COO: the host does it
-        del key
-    rows, cols = rows[order], cols[order]
-    data = vals.to(torch.float32)[order]
-    del order, vals
+    data = vals.to(torch.float32)
+    del vals
     keep = data != 0
     if not bool(keep.all()):
         rows, cols, data = rows[keep], cols[keep], data[keep]
     del keep
     # sorted columns within each row: canonical unless a (row, col) repeats
-    canonical = not bool(((rows[1:] == rows[:-1]) & (cols[1:] == cols[:-1])).any())
+    canonical = not repeats(rows, cols)
+    idx = index_dtype(matrix)
     indptr = torch.searchsorted(rows, torch.arange(n_rows + 1, device=device, dtype=rows.dtype))
     out = sp.csr_array(tuple(_to_host(data, cols.to(idx), indptr.to(idx))), shape=(n_rows, n_cols))
     out.has_sorted_indices = True

@@ -32,7 +32,9 @@ from .engine import s_plus as _engine_s_plus
 from .engine import spans as _spans
 from .engine import splus as _splus
 from .normalization import normalize as _normalize
+from .ops import card_p3 as _card_p3
 from .ops.csr import sparse_bytes as _sparse_bytes
+from .utils.device import resolve_device as _resolve_device
 
 
 def __get_shrink_values__(shrink: float, shrink_type: str):
@@ -302,14 +304,15 @@ def p3alpha(
     (m_iu/r_i)^a (m_ju/c_u)^a = A_iu A_ju / r_i^a with
     A_iu = m_iu^a / c_u^(a/2) — one shared operand (A, A.T) plus a
     row-side depop r^a. Same scores; the JAX package takes this form for
-    its symmetric executor."""
+    its symmetric executor. The transform runs on the call's device when it
+    takes the input (``_p3_value_symmetric``)."""
 
     def transform():
         if matrix2 is None and shrink == 0 and not binary:
-            return _p3_symmetric(matrix1, alpha, None, 0.0)
-        return _p3_general(matrix1, matrix2, alpha, extensions)
+            return _p3_value_symmetric(matrix1, alpha, 0.0, extensions, popularity=False)
+        return _p3_general(matrix1, matrix2, alpha, extensions) + (_ON_HOST,)
 
-    return _host_transformed(
+    return _transformed(
         (matrix1, matrix2), transform,
         _common_kwargs(
             k, shrink, shrink_type, threshold, binary, target_rows, target_cols,
@@ -335,19 +338,26 @@ def _sparse_footprint(matrices) -> dict:
     return {"nnz": int(nnz), "bytes": int(nbytes)}
 
 
-def _host_transformed(inputs, transform, common: dict):
-    """One call of a similarity that works on the host before s_plus:
-    `transform()` gives (matrix1, its s_plus keyword arguments), then s_plus
-    runs on them with the `common` ones. With ``splus.TIMING`` on, the
-    call's root span opens here, the transform runs in its child span
-    ``transform`` (``attrs``: the ``nnz`` and ``bytes`` of `inputs`, the
-    matrices it reads) ahead of s_plus's laps, and s_plus opens no second
-    root."""
+# the span attrs of a transform that ran on the host
+_ON_HOST = {"where": "host", "upload_bytes": 0}
+
+
+def _transformed(inputs, transform, common: dict):
+    """One call of a similarity that transforms its inputs before s_plus:
+    `transform()` gives (matrix1, its s_plus keyword arguments, where the
+    work ran), then s_plus runs on them with the `common` ones. The
+    value-symmetric P3 transform runs on the call's device when that takes
+    the input, every other transform on the host. With ``splus.TIMING``
+    on, the call's root span opens here, the transform runs in its child
+    span ``transform`` (``attrs``: the ``nnz`` and ``bytes`` of `inputs`,
+    the matrices it reads; ``where``, "card" or "host", where the work ran;
+    ``upload_bytes``, what went up to the device, 0 on the host path) ahead
+    of s_plus's laps, and s_plus opens no second root."""
     with _spans.call(_splus.TIMING):
         with _spans.span("transform") as span:
-            matrix1, kwargs = transform()
+            matrix1, kwargs, where = transform()
             if _spans.ACTIVE:
-                span.attrs.update(_sparse_footprint(inputs))
+                span.attrs.update(_sparse_footprint(inputs), **where)
         return _engine_s_plus(matrix1, **kwargs, **common)
 
 
@@ -382,6 +392,11 @@ def _p3_symmetric(matrix1, alpha, pop_m2, beta):
         cf = np.where(c > 0, np.power(c, -alpha / 2.0), 0.0)
     a_mat = _sp.csr_matrix(a_mat.multiply(cf[None, :]), dtype=np.float32)
     depop1 = np.power(np.where(r > 0, r, 1.0), alpha).astype(np.float32)
+    return a_mat, _p3_kwargs(depop1, pop_m2, beta, m.shape[0])
+
+
+def _p3_kwargs(depop1, pop_m2, beta, n_rows: int) -> dict:
+    """The s_plus keyword arguments of the value-symmetric form."""
     kwargs = dict(
         matrix2=None,
         weight_depop_matrix1=depop1,
@@ -391,9 +406,28 @@ def _p3_symmetric(matrix1, alpha, pop_m2, beta):
     if pop_m2 is not None:
         kwargs.update(weight_depop_matrix2=pop_m2, p2=beta)
     else:
-        kwargs.update(weight_depop_matrix2=np.ones(m.shape[0], np.float32),
+        kwargs.update(weight_depop_matrix2=np.ones(n_rows, np.float32),
                       p2=1.0)
-    return a_mat, kwargs
+    return kwargs
+
+
+def _p3_value_symmetric(matrix1, alpha, beta, extensions, popularity: bool):
+    """The value-symmetric form of a p3alpha (`popularity` False) or
+    rp3beta call: (A, its s_plus keyword arguments, the ``transform``
+    span's ``where`` and ``upload_bytes``). On the call's device when it
+    takes the input (``ops/card_p3.py``: a CSC, CSR or COO with entries and
+    no repeated (row, col)); else the host form ``_p3_symmetric``, with the
+    popularity from the signed sum, matching the reference's
+    pop_m2 = m2.sum(axis=0) (similarity.py:479) and the general path."""
+    device = _resolve_device(extensions.get("device", "cuda"))
+    got = _card_p3.transform(matrix1, alpha, device, popularity)
+    if got is None:
+        pop = (np.asarray(matrix1.T.sum(axis=0)).ravel().astype(np.float32)
+               if popularity else None)
+        return _p3_symmetric(matrix1, alpha, pop, beta) + (_ON_HOST,)
+    where = {"where": "card" if device.type == "cuda" else "host",
+             "upload_bytes": got.upload_bytes}
+    return got.a, _p3_kwargs(got.depop1, got.pop, beta, matrix1.shape[0]), where
 
 
 def rp3beta(
@@ -421,15 +455,12 @@ def rp3beta(
 
     def transform():
         if matrix2 is None and shrink == 0 and not binary:
-            # signed sum, matching the reference's pop_m2 = m2.sum(axis=0)
-            # (similarity.py:479) and the general path below
-            pop = np.asarray(matrix1.T.sum(axis=0)).ravel().astype(np.float32)
-            return _p3_symmetric(matrix1, alpha, pop, beta)
+            return _p3_value_symmetric(matrix1, alpha, beta, extensions, popularity=True)
         pop_m2 = np.asarray((matrix1.T if matrix2 is None else matrix2).sum(axis=0)).ravel()
         m1, kwargs = _p3_general(matrix1, matrix2, alpha, extensions)
-        return m1, dict(kwargs, weight_depop_matrix2=pop_m2, p2=beta, l3=1)
+        return m1, dict(kwargs, weight_depop_matrix2=pop_m2, p2=beta, l3=1), _ON_HOST
 
-    return _host_transformed(
+    return _transformed(
         (matrix1, matrix2), transform,
         _common_kwargs(
             k, shrink, shrink_type, threshold, binary, target_rows, target_cols,

@@ -200,7 +200,11 @@ def test_a_transformed_call_has_one_root_and_its_transform_first(name):
     assert root.start <= transform.start <= transform.end <= children[1].start
     csr_bytes = URM.data.nbytes + URM.indices.nbytes + URM.indptr.nbytes
     n_inputs = 1 if name == "rp3beta_high" else 2
-    assert transform.attrs == {"nnz": n_inputs * URM.nnz, "bytes": n_inputs * csr_bytes}
+    # the value-symmetric transform runs on the call's device (the CPU here,
+    # so "host"): URM.T's arrays and the users' column factors went up
+    sent = csr_bytes + 8 * URM.shape[0] if name == "rp3beta_high" else 0
+    assert transform.attrs == {"nnz": n_inputs * URM.nnz, "bytes": n_inputs * csr_bytes,
+                               "where": "host", "upload_bytes": sent}
     assert root.attrs["route"] == executor.last_route
     # matrix2 given: a route of two matrices (the fixture turns compaction on)
     assert root.attrs["route"] == ("symmetric" if name == "rp3beta_high" else "compact")
