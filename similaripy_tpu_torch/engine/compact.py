@@ -696,14 +696,16 @@ def execute_compact(
             progress.update(step)
     del d_group, d_hot
 
-    out_vals = np.empty((T, k), np.float32)
-    out_idx = np.empty((T, k), np.int32)
-    for bi, b in enumerate(dev_buckets):
-        vals_np = carries[bi][0].cpu().numpy()
-        idx_np = carries[bi][1].cpu().numpy()
-        for pi, rows in enumerate(b["panel_rows"]):
-            out_vals[rows] = vals_np[pi, : rows.shape[0]]
-            out_idx[rows] = idx_np[pi, : rows.shape[0]]
-    # device column ids are balanced-layout slots; -inf slots carry
-    # arbitrary ids and are dropped in assembly
-    return out_vals, col_map[out_idx].astype(np.int32)
+    with spans.span("pack"):
+        out_vals = np.empty((T, k), np.float32)
+        out_idx = np.empty((T, k), np.int32)
+        for bi, b in enumerate(dev_buckets):
+            vals_np = carries[bi][0].cpu().numpy()
+            idx_np = carries[bi][1].cpu().numpy()
+            for pi, rows in enumerate(b["panel_rows"]):
+                out_vals[rows] = vals_np[pi, : rows.shape[0]]
+                out_idx[rows] = idx_np[pi, : rows.shape[0]]
+        # device column ids are balanced-layout slots; -inf slots carry
+        # arbitrary ids and are dropped in assembly
+        out_idx = col_map[out_idx].astype(np.int32)
+    return out_vals, out_idx

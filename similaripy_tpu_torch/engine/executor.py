@@ -57,7 +57,7 @@ import torch
 from ..ops.csr import csc_quantized
 from ..parallel import mesh as pmesh
 from ..utils.device import hbm_budget_bytes, resolve_device
-from . import cache, compact, scatter, staging, symmetric, tile_topk
+from . import cache, compact, scatter, spans, staging, symmetric, tile_topk
 from .params import PVEC_LEN, SPlusParams, build_pvec
 from .preprocess import (
     Preprocessed, _fingerprint, clear_prep_cache, prep_cache_counts, prep_cache_len,
@@ -594,7 +594,8 @@ def execute_grouped(
     cdt = compute_cast(compute_dtype)
     # exclude-seen fold: the recommend idiom's per-row filter becomes
     # matmul algebra (m2 - M*I): no selector tiles and no filter masks
-    fold_M = _exclude_seen_fold(pre, m1, m2, params, compute_dtype, C)
+    with spans.span("fold"):
+        fold_M = _exclude_seen_fold(pre, m1, m2, params, compute_dtype, C)
     # every rank plans with the smallest budget and the largest foreign
     # cache, so all plan the same geometry and join the same collectives
     budget, neg_foreign = pmesh.agree_min(
@@ -770,42 +771,44 @@ def execute_grouped(
     for g in range(n_groups):
         t0, t1 = g * g_tiles, (g + 1) * g_tiles
         d_stack = None  # release the previous group before the next lands
-        d_stack = densify_group(
-            t_rows[t0:t1], t_cols[t0:t1], t_vals[t0:t1],
-            u_pad=2 * u_pad if d_split == "split" else u_pad, tc=tc, cdt=split_cdt,
-        )
-        group = {name: arr[t0:t1] for name, arr in tiles_common.items()}
-        for name, arr in sel_stacked.items():
-            group[name] = dev(arr[:, t0:t1])
-        _run_group_panels(
-            panels, d_stack, group, pvec, carries,
-            flags=params.static_flags(), k_pad=k_pad, trp=trp,
-            panel_k=2 * u_pad if a_split else u_pad, cdt=split_cdt, int8_mode=int8_mode,
-            tile_fn=step, f32x3=f32x3,
-        )
+        with spans.span("tile_group"):
+            d_stack = densify_group(
+                t_rows[t0:t1], t_cols[t0:t1], t_vals[t0:t1],
+                u_pad=2 * u_pad if d_split == "split" else u_pad, tc=tc, cdt=split_cdt,
+            )
+            group = {name: arr[t0:t1] for name, arr in tiles_common.items()}
+            for name, arr in sel_stacked.items():
+                group[name] = dev(arr[:, t0:t1])
+            _run_group_panels(
+                panels, d_stack, group, pvec, carries,
+                flags=params.static_flags(), k_pad=k_pad, trp=trp,
+                panel_k=2 * u_pad if a_split else u_pad, cdt=split_cdt, int8_mode=int8_mode,
+                tile_fn=step, f32x3=f32x3,
+            )
         if progress is not None:
             done = T if g == n_groups - 1 else (T * (g + 1)) // n_groups
             progress.update(done - (T * g) // n_groups)
     del d_stack
 
     # ---- on a mesh: merge over 'cols', then gather every row shard ----
-    k_out = min(k, k_pad)
-    vals = torch.stack([c[0] for c in carries]).transpose(1, 2)[:, :, :k_out]
-    idx = torch.stack([c[1] for c in carries]).transpose(1, 2)[:, :, :k_out]
-    vals, idx = pmesh.merge_topk(vals, idx, mesh, k_out, "cols")
-    out_vals = np.full((T, k), NEG_INF, np.float32)
-    out_idx = np.zeros((T, k), np.int32)
-    for r, (v, i) in enumerate(pmesh.gather_rows(vals, idx, mesh)):
-        v, i = v.cpu().numpy(), i.cpu().numpy()
-        for p in range(n_panels):
-            sel = slot_sel[p * R_sh + r]
-            out_vals[sel, :k_out] = v[p, : sel.shape[0]]
-            out_idx[sel, :k_out] = i[p, : sel.shape[0]]
+    with spans.span("pack"):
+        k_out = min(k, k_pad)
+        vals = torch.stack([c[0] for c in carries]).transpose(1, 2)[:, :, :k_out]
+        idx = torch.stack([c[1] for c in carries]).transpose(1, 2)[:, :, :k_out]
+        vals, idx = pmesh.merge_topk(vals, idx, mesh, k_out, "cols")
+        out_vals = np.full((T, k), NEG_INF, np.float32)
+        out_idx = np.zeros((T, k), np.int32)
+        for r, (v, i) in enumerate(pmesh.gather_rows(vals, idx, mesh)):
+            v, i = v.cpu().numpy(), i.cpu().numpy()
+            for p in range(n_panels):
+                sel = slot_sel[p * R_sh + r]
+                out_vals[sel, :k_out] = v[p, : sel.shape[0]]
+                out_idx[sel, :k_out] = i[p, : sel.shape[0]]
 
-    # device column ids are balanced-layout slots; map back to originals.
-    # -inf slots carry arbitrary ids (incl. unused-slot sentinels) and are
-    # dropped downstream in assembly, so a blanket map is safe.
-    out_idx = col_map[out_idx].astype(np.int32)
+        # device column ids are balanced-layout slots; map back to originals.
+        # -inf slots carry arbitrary ids (incl. unused-slot sentinels) and are
+        # dropped downstream in assembly, so a blanket map is safe.
+        out_idx = col_map[out_idx].astype(np.int32)
     return out_vals, out_idx
 
 

@@ -392,9 +392,10 @@ def preprocess(
     out.self_similar = bool(self_similar)
 
     # --- column selectors (reference: s_plus.pyx:284-295) ---
-    filter_sel = build_column_selector(filter_cols)
-    target_sel = build_column_selector(target_cols)
-    out.col_allowed = compute_col_allowed(filter_sel, target_sel, n_output_cols)
+    with spans.span("selectors"):
+        filter_sel = build_column_selector(filter_cols)
+        target_sel = build_column_selector(target_cols)
+        out.col_allowed = compute_col_allowed(filter_sel, target_sel, n_output_cols)
     if filter_sel.mode == MODE_MATRIX:
         out.filter_matrix = filter_sel.matrix
     if target_sel.mode == MODE_MATRIX:

@@ -29,6 +29,9 @@ the work itself:
   - ``norms`` and ``gate``: a miss of the preprocess cache, its norm and
     depop vectors and its int8 gate (once a call: a self-similar call's
     m1.T takes m1's scale);
+  - ``selectors``: the column selectors of ``preprocess`` (a sparse
+    filter or target checked for zeros and sorted indices, copied and
+    cleaned where it needs it; an array's global mask);
   - ``hash``: each content fingerprint (``preprocess._fingerprint``), in
     ``preprocess`` or in an executor's cache key; ``attrs["bytes"]`` is
     what it hashed;
@@ -43,12 +46,35 @@ the work itself:
   - ``split``: the split-bf16x3 COO of a ``precision='high'`` call
     (``staging.split_coo``), inside the ``stage`` that makes it;
     ``attrs["entries"]`` is the entries it gives out;
+  - ``bf16_exact``: a miss of ``staging.bf16_exact``, the check of
+    every value of a matrix for bf16 exactness that picks a
+    ``precision='high'`` call's product mode, in ``execute (wall)``;
+  - ``fold``: the gate of the general executor's exclude-seen fold
+    (``executor._exclude_seen_fold``: the filter's pattern against
+    matrix1's, and the penalty's statistics on a miss of their memo);
+  - ``alloc``: the symmetric executor's allocations before its sweep:
+    the carry planes on the device and the (C, k) outputs on the host;
   - ``group``: one column group of a compaction call (``compact.py``), in
     ``execute (wall)``: its dense table (K5), and each panel's gather
     (K4), hot-prefix product and K3 launch; it ends once the card has
     done the group's work. ``attrs`` hold the group's ``index``, its
     ``cols``, the ``table_bytes`` of its dense table and the ``panels``
-    (K3 launches) it ran.
+    (K3 launches) it ran;
+  - ``tile_group``: one column group of the general executor
+    (``executor.py::execute_grouped``), in ``execute (wall)``: its tile
+    stack (K5), its selector uploads and its panels' K1 launches; it
+    ends once the host has enqueued that work, with no wait for the card;
+  - ``sweep``: one anchor pair of the symmetric executor
+    (``symmetric.py``), in ``execute (wall)``: the pair's anchors (K5),
+    its steps (K5 and K2) and the wait for the card that ends them; the
+    spans of a call sum to ``last_plan["stages"]["sweep_s"]`` to within
+    a few microseconds a pair;
+  - ``pack``: the copy-out of results: in the symmetric executor one a
+    pair (after its ``sweep``; they sum to ``last_plan["stages"]
+    ["pack_s"]`` likewise), the merge of both sides, the copy to the host
+    and the scatter into the call's output; in the general and the
+    compaction executors one a call, the copy to the host, the scatter by
+    panel or bucket and the map of device columns to items.
 
 A span's ``start`` and ``end`` are ``time.perf_counter()`` readings, the
 clock the benchmark puts device intervals on. While ``torch.profiler`` is

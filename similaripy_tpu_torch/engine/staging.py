@@ -107,11 +107,13 @@ def bf16_exact(fp, m) -> bool:
     bf16-representable: its entries and the sums of its repeated entries
     (preprocess.int8_values), judged on their f32 values in PyTorch.
     Integer ratings, binary interactions and counts up to 256 qualify.
-    Memoised by the content fingerprint `fp`."""
+    Memoised by the content fingerprint `fp`; a miss is a ``bf16_exact``
+    span of a traced call."""
     hit = _BF16_EXACT_CACHE.get(fp)
     if hit is None:
-        v = torch.from_numpy(np.ascontiguousarray(int8_values(m), dtype=np.float32))
-        hit = bool(torch.equal(v.to(torch.bfloat16).to(torch.float32), v))
+        with spans.span("bf16_exact"):
+            v = torch.from_numpy(np.ascontiguousarray(int8_values(m), dtype=np.float32))
+            hit = bool(torch.equal(v.to(torch.bfloat16).to(torch.float32), v))
         if len(_BF16_EXACT_CACHE) > 64:
             _BF16_EXACT_CACHE.pop(next(iter(_BF16_EXACT_CACHE)))
         _BF16_EXACT_CACHE[fp] = hit

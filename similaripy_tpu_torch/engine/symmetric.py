@@ -448,8 +448,14 @@ def execute_symmetric(
              for _ in range(count)],
         )
 
-    crv, cri = planes(k_pad_r, sw, n_groups)
-    ccv, cci = planes(k_pad_c, tc, n_tiles_dev)
+    with spans.span("alloc"):
+        crv, cri = planes(k_pad_r, sw, n_groups)
+        ccv, cci = planes(k_pad_c, tc, n_tiles_dev)
+        # the host's (C, k) outputs; device slots -> items, where -inf
+        # slots carry arbitrary ids, dropped in assembly
+        item_ids = item_map.astype(np.int32)
+        out_vals = np.full((C, k), NEG_INF, np.float32)
+        out_idx = np.zeros((C, k), np.int32)
 
     def coo(t0, t1):
         return dev_coo["ru"][t0:t1], dev_coo["sl"][t0:t1], dev_coo["vv"][t0:t1]
@@ -499,41 +505,42 @@ def execute_symmetric(
                 split_f32=split,
             )
 
-    out_vals = np.full((C, k), NEG_INF, np.float32)
-    out_idx = np.zeros((C, k), np.int32)
     t_prep = time.perf_counter()
     sweep_s = pack_s = 0.0
     done_rows = 0
     for pair, steps in schedule:
         t0 = time.perf_counter()
-        # a pair sweeps its first anchor's band with that anchor alone, then
-        # the tiles right of it with both; this rank runs its own steps
-        mine, need, _inner = rank_work(pair, steps, gt, me)
-        anchors = {a: make_anchor(a) for a in need}
-        for t, n in mine:
-            run_step(anchors, pair[:n], t)
-        del anchors
-        _sync(device)
-        t1 = time.perf_counter()
-        # the pair's rows are final: merge both sides, then (on a mesh) every
-        # rank's partials, and copy them out
-        parts = [
-            _pack_rows_dual(crv[a], cri[a], ccv[a * gt:(a + 1) * gt],
-                            cci[a * gt:(a + 1) * gt], k)
-            for a in pair
-        ]
-        vals, idx = pmesh.merge_topk(torch.cat([p[0] for p in parts]),
-                                     torch.cat([p[1] for p in parts]), mesh, k)
-        vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
-        seg = item_map[pair[0] * sw:(pair[-1] + 1) * sw]
-        real = seg < C
-        out_vals[seg[real]] = vals[real]
-        out_idx[seg[real]] = idx[real]
-        for a in pair:
-            crv[a] = cri[a] = None
-            ccv[a * gt:(a + 1) * gt] = cci[a * gt:(a + 1) * gt] = [None] * gt
+        with spans.span("sweep"):
+            # a pair sweeps its first anchor's band with that anchor alone,
+            # then the tiles right of it with both; this rank runs its own steps
+            mine, need, _inner = rank_work(pair, steps, gt, me)
+            anchors = {a: make_anchor(a) for a in need}
+            for t, n in mine:
+                run_step(anchors, pair[:n], t)
+            del anchors
+            _sync(device)
+            t1 = time.perf_counter()
+        with spans.span("pack"):
+            # the pair's rows are final: merge both sides, then (on a mesh)
+            # every rank's partials, and copy them out
+            parts = [
+                _pack_rows_dual(crv[a], cri[a], ccv[a * gt:(a + 1) * gt],
+                                cci[a * gt:(a + 1) * gt], k)
+                for a in pair
+            ]
+            vals, idx = pmesh.merge_topk(torch.cat([p[0] for p in parts]),
+                                         torch.cat([p[1] for p in parts]), mesh, k)
+            vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+            seg = item_map[pair[0] * sw:(pair[-1] + 1) * sw]
+            real = seg < C
+            out_vals[seg[real]] = vals[real]
+            out_idx[seg[real]] = item_ids[idx[real]]
+            for a in pair:
+                crv[a] = cri[a] = None
+                ccv[a * gt:(a + 1) * gt] = cci[a * gt:(a + 1) * gt] = [None] * gt
+            t2 = time.perf_counter()
         sweep_s += t1 - t0
-        pack_s += time.perf_counter() - t1
+        pack_s += t2 - t1
         if progress is not None:
             done = min(C, ((pair[-1] + 1) * sw * C) // Cdev)
             progress.update(done - done_rows)
@@ -543,6 +550,4 @@ def execute_symmetric(
     last_plan["stages"] = {
         "prep_s": t_prep - t_enter, "sweep_s": sweep_s, "pack_s": pack_s,
     }
-    # device slots -> items; -inf slots carry arbitrary ids, dropped in
-    # assembly
-    return out_vals, item_map.astype(np.int32)[out_idx]
+    return out_vals, out_idx

@@ -1,7 +1,8 @@
 """The benchmark's parts that the port's tests hold a cell's results to,
 loaded by path (perfbench/ is not a package): a plain reference, the
-comparison that decides `correct` (pbcore/compare.py), and a cell's
-workload and configuration files. Imports neither JAX nor the port."""
+comparison that decides `correct` (pbcore/compare.py), a cell's
+workload and configuration files, and the per-layer readers with the
+package `pbcore` they import. Imports neither JAX nor the port."""
 
 import importlib.util
 import json
@@ -38,3 +39,21 @@ def limits(cell: str) -> dict:
 
 def config(name: str) -> dict:
     return json.loads((BENCH / "configs" / f"{name}.json").read_text())
+
+
+def _register_pbcore():
+    """The benchmark's package `pbcore`, under the name its readers import."""
+    if "pbcore" not in sys.modules:
+        sys.modules["pbcore"] = _load("pbcore", BENCH / "pbcore" / "__init__.py", True)
+
+
+def pbcore(part: str):
+    """The module pbcore/<part>.py."""
+    _register_pbcore()
+    return importlib.import_module(f"pbcore.{part}")
+
+
+def reader(family: str):
+    """The per-layer reader metrics/<family>.py."""
+    _register_pbcore()
+    return _load(f"pb_metric_{family}", BENCH / "metrics" / f"{family}.py")
